@@ -1,8 +1,8 @@
-"""Measured training-quality pipelines (VERDICT r4 next #2 and #4).
+"""Measured training-quality pipelines.
 
 The reference exists to generate imitation data for GNN policies
 (reference README.md:25-30); this script closes the loop and RECORDS the
-numbers: each pipeline trains a policy on the chip and reports final
+numbers: each pipeline trains a policy on the device and reports final
 expert-action accuracy and learned-policy vs expert vs random episode
 reward — on the training bank AND a held-out bank of real-facility
 sub-windows the training never sampled.
@@ -11,7 +11,7 @@ Pipelines (one per invocation; results merge into --out):
 
   bc_greedy  — behavior cloning of the greedy expert (EdgeGraphNet) on
                CoverageARL real-map sub-windows.
-  bc_vrp     — the VERDICT #4 label-sensitivity experiment: ONE set of
+  bc_vrp     — the label-sensitivity experiment: ONE set of
                greedy-behavior rollout states labeled TWICE by the C++
                VRP expert (canonical or_default descent vs the
                last_accept enumeration-order probe), two identical-init
@@ -23,7 +23,7 @@ Pipelines (one per invocation; results merge into --out):
                action MSE + closed-loop mean episode reward for
                policy / expert / random.
 
-Usage: python benchmarks/train_quality.py <pipeline> [--out TRAIN_r05.json]
+Usage: python benchmarks/train_quality.py <pipeline> [--out FILE]
 """
 import argparse
 import json
@@ -40,8 +40,9 @@ import jax
 import jax.numpy as jnp
 
 import gym_flock_tpu as gft
+from gym_flock_tpu.utils.cache import enable_compile_cache
 
-OUT_DEFAULT = str(Path(__file__).parent.parent / "TRAIN_r05.json")
+OUT_DEFAULT = str(Path(__file__).parent.parent / "chiprun_out" / "train_quality.json")
 
 
 def merge_out(path: str, name: str, entry: dict):
@@ -431,6 +432,7 @@ def main():
         "probe_vrp_speed"])
     ap.add_argument("--out", default=OUT_DEFAULT)
     args = ap.parse_args()
+    enable_compile_cache()
     {"bc_greedy": run_bc_greedy, "bc_vrp": run_bc_vrp,
      "dagger": run_dagger, "flocking": run_flocking,
      "flocking_dagger": run_flocking_dagger,

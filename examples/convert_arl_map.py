@@ -4,7 +4,7 @@ One-time tool: locates ``grid_slice10.npy`` (the map every reference
 occupancy env uses — coverage_arl.py:19, coverage_full.py:3,
 coverage_explore_full.py:3), builds each occupancy variant's device-ready
 graph bank from it, and leaves the result in the content-keyed disk cache
-(``$GYM_FLOCK_TPU_CACHE``, default ``~/.cache/gym_flock_tpu``).  Every
+(``$GYM_FLOCK_TPU_CACHE``, default ``<checkout>/.bank_cache``).  Every
 subsequent ``gym_flock_tpu.make("CoverageARL-v0")`` etc. — in any process —
 then loads the real world instantly instead of re-running the all-pairs
 hop-cost preprocessing (tens of seconds for the full-facility variants).
@@ -66,10 +66,9 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     print(f"map: {map_path}")
-    cache_dir = os.environ.get(
-        "GYM_FLOCK_TPU_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "gym_flock_tpu"),
-    )
+    from gym_flock_tpu.utils.cache import bank_cache_dir
+
+    cache_dir = bank_cache_dir()
     print(f"bank cache: {cache_dir}")
 
     for env_id in args.variants:

@@ -1,7 +1,7 @@
 """Flocking demo driver — the reference's README usage loop, plus batch mode.
 
 Single-env mode mirrors the reference's interactive loop (README.md:18-30);
-``--batch`` demonstrates the TPU-native way: thousands of envs in one jitted
+``--batch`` demonstrates the batched way: thousands of envs in one jitted
 rollout.
 
     python examples/run_flocking.py --cpu -n 200 --render

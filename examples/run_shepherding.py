@@ -2,7 +2,7 @@
 
 The reference loop: reset, drive the heuristic line-of-sight expert until
 done, render each step, print the episode reward.  Here the same loop runs
-through the pure-JAX env; ``--batch`` shows the TPU-native form (one jitted
+through the pure-JAX env; ``--batch`` shows the batched form (one jitted
 rollout over many episodes).
 
     python examples/run_shepherding.py --cpu -N 3 --render

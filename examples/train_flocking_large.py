@@ -5,15 +5,12 @@ env instance).  This example trains ``models.LargeAggregationGNN`` by
 imitation on ``FlockingLarge-v0``: every pairwise product — the env's
 observation features, the Turner expert, and the GNN's K-hop aggregation
 (forward AND backward, via the custom VJP of ``ops.adjacency_matmul``) —
-runs blockwise with O(N) memory.
+runs tile by tile with O(N) memory.
 
-    python examples/train_flocking_large.py --agents 2048           # one chip
+    python examples/train_flocking_large.py --agents 2048           # one GPU
     python examples/train_flocking_large.py --cpu --agents 64       # smoke
     python examples/train_flocking_large.py --agents 64 --shard-agents \
         --cpu  # agent-axis-sharded training step (virtual mesh on CPU)
-
-Measured (v5e, one chip): ~37 ms/train-step at N=2048 with 16
-trajectory-steps of fresh expert data per batch.
 """
 import argparse
 import os
@@ -51,13 +48,12 @@ def main():
     )
 
     env, params = gft.make("FlockingLarge-v0", n_agents=args.agents)
-    interpret = args.cpu  # Pallas interpreter off-TPU
-    trainer = LargeFlockingImitationTrainer(env, params, interpret=interpret)
+    trainer = LargeFlockingImitationTrainer(env, params)
 
     key = jax.random.key(0)
     if args.shard_agents:
         assert args.agents % len(jax.devices()) == 0
-        step, mesh = trainer.make_agent_sharded_train_step(interpret=interpret)
+        step, mesh = trainer.make_agent_sharded_train_step()
         print(f"agent axis sharded over {mesh.devices.size} devices")
         carry = trainer.init(jax.random.key(1))
         for i in range(args.iters):

@@ -1,4 +1,4 @@
-"""gym_flock_tpu — TPU-native multi-robot swarm environment engine.
+"""gym_flock_tpu — accelerator-native multi-robot swarm environment engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 katetolstaya/gym-flock (reference layout: gym_flock/__init__.py:3-112):
@@ -15,7 +15,8 @@ Core ideas
   env-batch axis across chips/hosts (``gym_flock_tpu.parallel``).
 * All hot kernels are dense masked tensor ops with static shapes; variable
   graph topology uses the padded-buffer scheme the reference already
-  pioneered (coverage.py:54-56), which is exactly the TPU-shaped design.
+  pioneered (coverage.py:54-56), which is exactly what batched static-shape
+  device code needs.
 * A legacy class-based API with ``reset()/step()/controller()/render()``
   (``gym_flock_tpu.compat``) is provided for drop-in replacement of the
   reference's gym 0.11 envs.

@@ -1,11 +1,11 @@
-"""Pure-functional environment protocol — the TPU-native core API.
+"""Pure-functional environment protocol — the core API.
 
 The reference (katetolstaya/gym-flock) exposes stateful gym 0.11 objects with
 ``reset()/step()/render()/seed()`` plus the non-standard ``controller()``
 expert (reference README.md:25-30).  That design is host-Python-centric: one
 mutable NumPy object per environment instance, stepped one at a time.
 
-The TPU-native design inverts this: an :class:`Env` is a *namespace of pure
+This design inverts it: an :class:`Env` is a *namespace of pure
 functions* over an immutable pytree ``State`` and a static pytree ``Params``:
 
     state, obs      = env.reset(key, params)
@@ -38,7 +38,7 @@ from typing import Any, Dict, Generic, Optional, Tuple, TypeVar
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from gym_flock_tpu.core import struct
 
 from gym_flock_tpu.core.spaces import Space
 
@@ -127,8 +127,8 @@ class Env(Generic[TParams, TState]):
     def expert(self, state: TState, params: TParams) -> Action:
         """Jitted expert action (``controller`` with default options).
 
-        Eager per-op dispatch is expensive on remote-attached accelerators;
-        use this (or your own jit of ``controller``) on the hot path.
+        Eager per-op dispatch costs a device launch per operation; use this
+        (or your own jit of ``controller``) on the hot path.
         """
         return self.controller(state, params)
 

@@ -1,6 +1,6 @@
 """Coverage / exploration graph-MDP engine — pure-JAX, static shapes.
 
-TPU-native re-design of the reference spatial family:
+Batched, jit-compiled re-design of the reference spatial family:
 
 * ``CoverageEnv``      — reference gym_flock/envs/spatial/coverage.py:82-872
 * ``CoverageARLEnv``   — reference coverage_arl.py:15-83 (occupancy maps)
@@ -10,8 +10,8 @@ TPU-native re-design of the reference spatial family:
 
 N robots walk on a road-lattice graph choosing one of ``N_ACTIONS=4`` padded
 motion edges per step; reward is newly-visited targets.  The reference's
-padded-buffer observation (MAX_NODES/MAX_EDGES, coverage.py:54-56) is already
-a TPU-shaped design and is kept; everything *around* it is re-architected:
+padded-buffer observation (MAX_NODES/MAX_EDGES, coverage.py:54-56) already
+has static shapes and is kept; everything *around* it is re-architected:
 
 * maps/graphs are preprocessed host-side into a :class:`GraphBank`
   (``gym_flock_tpu.envs.coverage_graph``) — per-node neighbor tables replace
@@ -37,7 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from gym_flock_tpu.core import struct
 
 from gym_flock_tpu.core.env import Env, EnvState
 from gym_flock_tpu.core.spaces import Box, DictSpace, MultiDiscrete
@@ -89,19 +89,11 @@ class CoverageParams:
     # reversed tail duplicates carrying negated diffs; motion rows keep raw
     # (unnormalized) values like the dist quirk, tail rows are / res.
     pos_delta: bool = struct.field(pytree_node=False, default=False)
-    # greedy-expert cost-row routing: None = auto (backend/robot-count
-    # heuristic in _mm_expert_active), True/False forces the MXU one-hot
-    # matmul / the row gather
-    expert_mm: bool | None = struct.field(pytree_node=False, default=None)
     # hide-nodes discovery-mask routing: None = auto (engage when the bank
     # carries hide_*_onehot operands and the tail-edge radius condition
-    # holds — see _hide_mm_active), True/False forces the MXU one-hot
+    # holds — see _hide_mm_active), True/False forces the one-hot
     # matmul / the gather+scatter path
     hide_mm: bool | None = struct.field(pytree_node=False, default=None)
-    # large-T greedy-expert routing: None = auto (engage when the bank
-    # carries the folded cost_rows_pad operand — see _rowmin_active),
-    # True/False forces the fused Pallas row-min / the XLA gather
-    expert_rowmin: bool | None = struct.field(pytree_node=False, default=None)
     # largest motion/action edge length in the bank (set by the factory,
     # host-computed); static so _hide_mm_active can compare it against
     # discover_radius with params as a traced jit argument
@@ -160,51 +152,35 @@ def _safe_gather(vec: jax.Array, idx: jax.Array, fill=0.0) -> jax.Array:
     return jnp.where(idx >= 0, vec[safe], jnp.asarray(fill, vec.dtype))
 
 
-def _mm_expert_active(params) -> bool:
-    """Static predicate: the MXU greedy-expert path is in use (see
-    :func:`_greedy_cost_rows`).
+def _packed_greedy_min(cost, g, cur, blocked):
+    """``min_t where(blocked, 1024, cost[g, cur, t]) * 8192 + t`` per robot.
 
-    On accelerator backends the one-hot matmul engages at ANY robot count:
-    a vmapped env batch flattens into one [B*R, G*T] x [G*T, T] dot whose
-    operand stays resident, and the duplication win dominates (measured
-    +54% end-to-end at R=6, B=8192 — the batch has only G*T distinct rows).
-    Unbatched small-R on the TPU is a tie (measured B=1, R=6, G=4: 6,728
-    steps/s mm vs 6,670 gather — the row gather is itself slow there), so
-    batch-awareness is not needed.  On the host backend (the legacy
-    single-stream loop, B=1) the per-call operand read loses at small R,
-    so the R >= 16 gate stays there.
+    One env (``jax.vmap`` over the batch): ``cost`` [G, T, T], ``g`` the
+    env's graph, ``cur`` [R] robot nodes, ``blocked`` [T].  The target index
+    rides in the low bits, so one single-value ``min`` gives both the
+    nearest cost and the first index attaining it (argmin's tie-break).
+    Exact in f32: costs are integers <= 2047 and T <= 8192
+    (coverage_graph._cost_pack_marker), so every value is < 2^24.  Decode
+    with ``loc = m % 8192`` and ``unreachable = (m - loc) / 8192 >=
+    MAX_COST``.
     """
-    mm = params.bank.get("graph_cost_mm")
-    if mm is None:
-        return False
-    if params.expert_mm is not None:
-        # T < 4096 is a CORRECTNESS bound, not a heuristic: the controller
-        # packs cost*4096+idx into one value, so indices >= 4096 alias onto
-        # cost+1 and yield wrong greedy actions.  The force can only route
-        # WITHIN the exact range, like _hide_mm_active's radius condition.
-        return params.expert_mm and mm.shape[1] < 4096
-    return (
-        (params.n_robots >= 16 or jax.default_backend() != "cpu")
-        # single-graph banks always qualify (the original 1.7x case);
-        # multi-graph banks are bounded by the flattened one-hot width
-        and (mm.shape[0] == 1 or mm.shape[0] * mm.shape[1] <= 8192)
-        # the one-hot matmul is O(T^2) per cost row and the controller's
-        # cost*4096+idx packing needs T < 4096; bigger worlds (the bf16
-        # copy is now emitted at any T) take the packed gather path
-        and mm.shape[1] < 4096
-    )
+    rows = cost[g, cur].astype(jnp.float32)  # [R, T]
+    idx = jnp.arange(blocked.shape[-1], dtype=jnp.float32)
+    return jnp.min(jnp.where(blocked[None, :], 1024.0, rows) * 8192.0 + idx, axis=-1)
 
 
 def _hide_mm_active(params) -> bool:
-    """Static predicate: the MXU discovery-mask path is in use.
+    """Static predicate: the one-hot discovery-mask path is in use.
 
     The hide-nodes obs needs per-edge discovery lookups
     (``disc_all[senders]``/``[receivers]``) and a frontier scatter — all
-    per-env-index ops measured at ~10 ns/element on TPU (ExploreFull-100:
-    the gather+scatter path is 15x the whole rest of the step).  With the
-    bank's ``hide_*_onehot`` operands (coverage_graph.hide_mm_operands)
-    they become three exact one-hot matmuls over the MOTION block only;
-    the tail (action) edges need almost no lookups when
+    per-env-index gathers and scatters.  With the bank's ``hide_*_onehot``
+    operands (coverage_graph.hide_mm_operands) they become three exact
+    one-hot matmuls over the MOTION block only.  On an NVIDIA H100 (700 W)
+    the gather path measured faster at ExploreFullEnv-v0 x 512 envs (16
+    greedy steps: 23.7 ms vs 35.9 ms, benchmarks/kernel_timings.py); the
+    auto default stays on until the benchmark re-decides it.  The fast path
+    relies on this: the tail (action) edges need almost no lookups when
     ``max_neighbor_dist <= discover_radius``: every REAL action-edge
     endpoint is at distance (0, discover_radius] of its robot's CURRENT
     node, and the discovery update runs before the masks, so those
@@ -236,66 +212,6 @@ def _hide_mm_active(params) -> bool:
     if params.hide_mm is not None:
         return params.hide_mm and ok
     return ok
-
-
-def _rowmin_active(params) -> bool:
-    """Static predicate: the fused row-gather packed-min (ops.rowmin) is in
-    use for the greedy expert.  Engages when the factory attached the
-    folded ``cost_rows_pad`` operand (large-T worlds where the one-hot
-    matmul is out of range) and the packed-min contract holds
-    (``cost_pack_ok``).  The TPU-vs-CPU routing happens INSIDE
-    ``packed_greedy_min``'s custom_vmap rule, so this predicate is
-    backend-independent — non-TPU backends take its XLA fallback with
-    identical arithmetic."""
-    ok = (
-        "cost_rows_pad" in params.bank
-        and "cost_pack_ok" in params.bank
-        and not _mm_expert_active(params)
-    )
-    if params.expert_rowmin is not None:
-        return params.expert_rowmin and ok
-    return ok
-
-
-def _greedy_cost_rows(params, g, cur: jax.Array) -> jax.Array:
-    """``graph_cost[g, cur]`` rows [R, T] for the greedy expert.
-
-    TPU routing: the XLA row gather runs at <10% of HBM bandwidth here, and
-    a large-R batch gathers the same T distinct rows over and over (36x
-    duplication at R=100, B=512).  The duplicated gather becomes a one-hot
-    matmul on the MXU: out[r, t] = sum_k onehot[r, k] * C[k, t] has exactly
-    ONE nonzero term per output element, so it is exact (no accumulation
-    error) provided each finite cost is bf16-representable — guaranteed
-    when the bank carries ``graph_cost_mm`` (integer hop counts <= 256;
-    unreachable stored as 1024, which still satisfies the ``>= MAX_COST``
-    test — see coverage_graph._mm_cost_copy).  Measured 1.7x on the
-    ExploreFull-100 controller phase.
-
-    Multi-graph banks flatten to one [G*T, T] operand indexed by
-    ``g*T + cur`` — still exactly one nonzero per one-hot row, so exactness
-    is unchanged; the operand is batch-invariant (stays resident across the
-    vmapped env batch) at G x the FLOPs.  Gated by ``_mm_expert_active``'s
-    G*T width bound.
-    """
-    bank = params.bank
-    if _mm_expert_active(params):
-        mm = bank["graph_cost_mm"]  # [G, T, T] bf16
-        G, T = mm.shape[0], mm.shape[1]
-        if G == 1:
-            onehot = jax.nn.one_hot(cur, T, dtype=jnp.bfloat16)
-            operand = mm[0]
-        else:
-            onehot = jax.nn.one_hot(
-                g.astype(jnp.int32) * T + cur, G * T, dtype=jnp.bfloat16
-            )
-            operand = mm.reshape(G * T, T)
-        return jax.lax.dot_general(
-            onehot,
-            operand,
-            (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-    return bank["graph_cost"][g, cur]
 
 
 def _resolve_conflicts(cur: jax.Array, chosen: jax.Array, collision_checks: bool):
@@ -431,8 +347,7 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
         # Row gather + in-register action select rather than a 3-index
         # element gather: when the greedy controller ran in the same program
         # it gathered the IDENTICAL [R, A] rows (coverage.py:868), so XLA
-        # CSEs the two — [B, R]-element gathers cost ~10 ns/element on TPU
-        # and this removes one of them from the expert rollout
+        # CSEs the two and the expert rollout runs one gather, not two
         nbr_rows = params.bank["neighbor_table"][g, cur]  # [R, A]
         a_iota = jnp.arange(params.n_actions, dtype=jnp.int32)
         # clip keeps the old gather's clamp semantics for out-of-range
@@ -703,13 +618,13 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
             cols = [c * disc_all for c in cols]
 
             if _hide_mm_active(params):
-                # MXU discovery masks (rationale in _hide_mm_active): the
+                # one-hot discovery masks (rationale in _hide_mm_active): the
                 # motion-block lookups run as exact one-hot matmuls against
                 # batch-invariant operands; tail edges are always discovered
                 # by the radius argument, so their frontier contribution is
                 # identically zero and their visibility is the forced 1.
                 # Per-env [1, G*n_all] rows flatten into one dot under the
-                # env-batch vmap (same routing as _greedy_cost_rows).
+                # env-batch vmap.
                 Gn = params.bank["target_mask"].shape[0]
                 n_all = R + T
                 seg = jnp.arange(Gn)[:, None] == g
@@ -851,7 +766,7 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
         The VRP expert (reference vrp_solver.py) is host-side — see
         ``gym_flock_tpu.experts.vrp``.
         """
-        R, T = params.n_robots, params.max_targets
+        R = params.n_robots
         g = state.graph
         if key is None:
             key = jax.random.key(0)
@@ -861,59 +776,21 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
         blocked = (state.visited >= 1.0) | ~mask
         if params.hide_nodes:
             blocked = blocked | (state.discovered <= 0.0)
-        if _rowmin_active(params):
-            # fused Pallas row-gather + packed min (ops.rowmin): the env
-            # batch flattens through the custom_vmap rule into one kernel
-            # launch; never materializes the [R, T] gathered rows.  m is
-            # bit-identical to the cost_pack branch below (same f32
-            # expression over the same real columns; the operand's padding
-            # columns pack strictly above every real column), so decode is
-            # identical too.
-            from gym_flock_tpu.ops.rowmin import packed_greedy_min
-
-            rowidx = g.astype(jnp.int32) * T + cur
-            m = packed_greedy_min(rowidx, blocked, params.bank["cost_rows_pad"])
-            greedy_loc = (m % 8192.0).astype(jnp.int32)
-            unreachable = (m - greedy_loc) / 8192.0 >= MAX_COST
-        elif _mm_expert_active(params):
-            # packed single-value min instead of argmin: TPU variadic
-            # (value, index) reduces vectorize poorly.  Costs here are
-            # integers <= 1024 (guaranteed by _mm_cost_copy) and T < 4096,
-            # so cost*4096 + idx < 2^24 is exact in f32 and a plain min
-            # reproduces argmin exactly — among tied costs the smallest
-            # packed value has the smallest index, which is argmin's
-            # first-match tie-break.
-            # fused row gathers — never stage the [T, T] matrices per env
-            r = _greedy_cost_rows(params, g, cur)  # [R, T]
-            idx = jnp.arange(T, dtype=r.dtype)
-            packed = jnp.where(blocked[None, :], MAX_COST, r) * 4096.0 + idx[None, :]
-            m = jnp.min(packed, axis=1)  # [R]
-            greedy_loc = (m % 4096.0).astype(jnp.int32)
-            unreachable = (m - greedy_loc) / 4096.0 >= MAX_COST
-        elif "cost_pack_ok" in params.bank:
-            # gather-path packed min (coverage_graph._cost_pack_marker):
-            # same single-value trick at mult 8192 — one fused reduce over
-            # the gathered rows instead of a variadic argmin plus a second
-            # advanced-index gather for the unreachable test.  Engages for
-            # any standard bank up to T=8192 (the real 5,659-node facility
-            # map included, where the one-hot matmul is out of range).
-            # Rows come from the bf16 cost copy when the bank carries one
-            # (values: exact integer hops + 1024 for unreachable — half
-            # the HBM bytes of the f32 table; the gather dominates the
-            # controller at large T), the f32 table otherwise.
-            mm = params.bank.get("graph_cost_mm")
-            rows = (
-                mm[g, cur].astype(jnp.float32)
-                if mm is not None
-                else _greedy_cost_rows(params, g, cur)
-            )
-            idx = jnp.arange(T, dtype=jnp.float32)
-            packed = jnp.where(blocked[None, :], 1024.0, rows) * 8192.0 + idx[None, :]
-            m = jnp.min(packed, axis=1)  # [R]
+        if "cost_pack_ok" in params.bank:
+            # packed single-value min (coverage_graph._cost_pack_marker):
+            # one fused reduce over the gathered rows instead of a variadic
+            # argmin plus a second gather for the unreachable test.  Rows
+            # come from the bf16 cost copy when the bank carries one (exact
+            # integer hops + 1024 for unreachable, half the bytes of the
+            # f32 table), the f32 table otherwise.  The gather is cheaper
+            # than a one-hot bf16 matmul against the table: 2.6x at
+            # Coverage-v0 (R=6) x 8,192 envs on an NVIDIA H100.
+            cost = params.bank.get("graph_cost_bf16", params.bank["graph_cost"])
+            m = _packed_greedy_min(cost, g, cur, blocked)
             greedy_loc = (m % 8192.0).astype(jnp.int32)
             unreachable = (m - greedy_loc) / 8192.0 >= MAX_COST
         else:
-            r = _greedy_cost_rows(params, g, cur)  # [R, T]
+            r = params.bank["graph_cost"][g, cur]  # [R, T]
             r = jnp.where(blocked[None, :], MAX_COST, r)
             greedy_loc = jnp.argmin(r, axis=1)  # [R] target idx
             unreachable = r[jnp.arange(R), greedy_loc] >= MAX_COST
@@ -956,7 +833,7 @@ _bank_cache: Dict[tuple, Any] = {}
 # bump TOGETHER with coverage_graph.BANK_SCHEMA when GraphSpec/bank fields
 # or the build algorithm change (this keys the cache filename; BANK_SCHEMA
 # is additionally embedded in + verified against the .npz itself)
-_BANK_FORMAT = 6
+_BANK_FORMAT = 7
 
 
 def default_coverage_bank(
@@ -995,19 +872,15 @@ def default_coverage_bank(
         return _bank_cache[cache_key]
 
     # disk cache: occupancy banks take ~15s to build (map load alone is ~12s
-    # in the reference, BASELINE.md); cache under ~/.cache keyed by config +
-    # a format version (bump _BANK_FORMAT when GraphSpec fields change)
+    # in the reference, BASELINE.md); cached in utils.cache.bank_cache_dir()
+    # keyed by config + a format version (bump _BANK_FORMAT when GraphSpec
+    # fields change)
     import hashlib
-    import os
-    from pathlib import Path
 
     from gym_flock_tpu.envs.coverage_graph import load_graph_bank, save_graph_bank
+    from gym_flock_tpu.utils.cache import bank_cache_dir
 
-    cache_dir = Path(
-        os.environ.get(
-            "GYM_FLOCK_TPU_CACHE", Path.home() / ".cache" / "gym_flock_tpu"
-        )
-    )
+    cache_dir = bank_cache_dir()
     digest = hashlib.sha1(repr((_BANK_FORMAT,) + cache_key).encode()).hexdigest()[:16]
     cache_path = cache_dir / f"bank_{digest}.npz"
     if cache_path.exists():
@@ -1223,7 +1096,7 @@ def coverage_factory(variant: str):
             if fit_nodes:
                 cfg["max_nodes"] = int(bank["target_mask"].shape[1]) + cfg["n_robots"]
         if cfg.get("hide_nodes") and not cfg.get("comm_edges"):
-            # MXU discovery-mask operands (host-built one-hots; see
+            # one-hot discovery-mask operands (host-built one-hots; see
             # _hide_mm_active and coverage_graph.hide_mm_operands).
             # max_neighbor_dist is the largest motion/action edge in the
             # bank — neighbor_dist rows pad with self-loops at dist 0, so
@@ -1275,27 +1148,6 @@ def coverage_factory(variant: str):
                     del bank[k]
                 bank.update(disc_reach_operand(bank, float(disc_r)))
             cfg.setdefault("max_neighbor_dist", maxd)
-        T_pad = bank["target_mask"].shape[1]
-        G_pad = bank["target_mask"].shape[0]
-        if (
-            "cost_rows_pad" not in bank
-            and "graph_cost_mm" in bank
-            and "cost_pack_ok" in bank
-            and T_pad >= 4096
-            and G_pad * T_pad * ((T_pad + 127) // 128 * 128) * 2
-            <= 512 * 1024 * 1024
-        ):
-            # folded large-T expert operand (ops.rowmin): engages the fused
-            # Pallas row-gather packed min on worlds where the one-hot MXU
-            # route is out of range (measured 4.1x the XLA gather at the
-            # real facility's [B=512, R=100, T=5659] shape).  Smaller
-            # worlds keep their existing mm/gather routes untouched.
-            from gym_flock_tpu.ops.rowmin import pad_cost_rows
-
-            bank["cost_rows_pad"] = jnp.asarray(
-                pad_cost_rows(np.asarray(bank["graph_cost_mm"], np.float32)),
-                jnp.bfloat16,
-            )
         # params get their OWN shallow dict (arrays shared): the memoized
         # bank is a process-wide cache whose disc_reach_* keys are
         # EVICTABLE (cap above) — a live env must keep its reach table

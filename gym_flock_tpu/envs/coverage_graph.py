@@ -2,8 +2,8 @@
 
 The reference rebuilds its road-lattice graph with NumPy/SciPy every episode
 (reference gym_flock/envs/spatial/coverage.py:516-527, make_map.py:30-231)
-and then walks Python loops over flat edge lists on every step.  The
-TPU-native split is:
+and then walks Python loops over flat edge lists on every step.  Here the
+split is:
 
 * **host, per graph** (this module): lattice + Delaunay road generation,
   largest-connected-component filtering, and *precomputation of every
@@ -427,7 +427,7 @@ def build_graph_bank(specs: List[GraphSpec]):
         "graph_cost": stack("graph_cost"),
         "graph_prev": stack("graph_prev"),
         "graph_hops": stack("graph_hops"),
-        **_mm_cost_copy(specs),
+        **_bf16_cost_copy(specs),
         **_cost_pack_marker(specs),
     }
 
@@ -435,9 +435,8 @@ def build_graph_bank(specs: List[GraphSpec]):
 def _cost_pack_marker(specs):
     """Presence marker ``cost_pack_ok``: the greedy expert may select the
     nearest target with a packed single-value min (``cost * 8192 + idx``)
-    instead of a variadic argmin — TPU (value, index) reduces vectorize
-    poorly, and on the gather path (no ``graph_cost_mm``) the argmin also
-    needs a second advanced-index gather for the unreachable test.
+    instead of a variadic (value, index) argmin, which also needs a second
+    advanced-index gather for the unreachable test.
 
     Exactness requires every cost (unreachable clamps included) to be a
     non-negative integer (construct_time_matrix uses edge_time=1.0, so
@@ -446,7 +445,7 @@ def _cost_pack_marker(specs):
     2047 * 8192 + 8191 = 2^24 - 1, exact in f32; among tied costs the
     smallest packed value carries the smallest index — argmin's
     first-match tie-break.  The marker is a bank KEY (presence is a static
-    python-level check under jit, like ``graph_cost_mm``); its value is a
+    python-level check under jit, like ``graph_cost_bf16``); its value is a
     placeholder scalar."""
     import jax.numpy as jnp
 
@@ -465,37 +464,32 @@ def _cost_pack_marker(specs):
     return {"cost_pack_ok": jnp.asarray(1, dtype=jnp.int32)}
 
 
-def _mm_cost_copy(specs):
+def _bf16_cost_copy(specs):
     """Optional bf16 copy of graph_cost, emitted whenever every finite
     cost is bf16-exact (integer hop counts <= 256 — construct_time_matrix
     uses edge_time=1.0, so costs are sweep counts); unreachable (MAX_COST)
     is stored as 1024.0, a bf16-exact power of two that still satisfies
     the controller's ``>= MAX_COST`` unreachable test.
 
-    Two consumers (envs.coverage): the MXU one-hot greedy expert
-    (``_greedy_cost_rows``, additionally gated at T < 4096 by
-    ``_mm_expert_active`` — both for its cost*4096+idx packing range and
-    because the one-hot matmul is O(T^2) per row), and the gather-path
-    packed min, which reads these rows at half the HBM bytes of the f32
-    table at any T (the 5.7k-node facility map's dominant phase)."""
+    The greedy expert's packed min (envs.coverage._packed_greedy_min)
+    gathers its cost rows from this copy, at half the bytes of the f32
+    table."""
     import jax.numpy as jnp
 
     costs = np.stack([s.graph_cost for s in specs])
     finite = costs[costs < MAX_COST]
     if finite.size and (finite.max() > 256 or (finite != np.round(finite)).any()):
         return {}
-    mm = np.where(costs >= MAX_COST, 1024.0, costs)
-    return {"graph_cost_mm": jnp.asarray(mm, dtype=jnp.bfloat16)}
+    copy = np.where(costs >= MAX_COST, 1024.0, costs)
+    return {"graph_cost_bf16": jnp.asarray(copy, dtype=jnp.bfloat16)}
 
 
 def hide_mm_operands(bank, n_robots: int, want=None):
     """bf16 one-hot operands for the hide-nodes discovery masks.
 
     Per-edge discovery lookups (``disc_all[senders]``) are batched gathers
-    with per-env indices — measured ~10 ns/element on TPU (34x slower than
-    the equivalent one-hot matmul at [B=512, E=6000]).  These operands turn
-    them into MXU work with batch-invariant right-hand sides, the same
-    routing as the greedy expert's cost rows (coverage._greedy_cost_rows):
+    with per-env indices.  These operands turn them into matrix products
+    with batch-invariant right-hand sides:
 
       ``W[g * n_all + n, e] = 1  iff  motion_<side>[g, e] == n``
 
@@ -541,8 +535,7 @@ def hide_mm_operands(bank, n_robots: int, want=None):
         # (0/1 sums <= in-degree, f32-exact accumulate), so
         # ``frontier[n] = disc[n] & (cnt[n] > 0)`` — the same boolean the
         # edge-space route computes as ``((1-d_send)*d_recv) @ W_recv.T
-        # > 0``, at n_all/Em (~1/4) of the MXU FLOPs (measured -0.5 ms of
-        # the ExploreFull batched step).
+        # > 0``, at n_all/Em (~1/4) of the matmul FLOPs.
         A = np.zeros((G * n_all, n_all), dtype=np.float32)
         for g in range(G):
             valid = (ms[g] >= 0) & (mr[g] >= 0)
@@ -683,7 +676,7 @@ def gen_sparse_grid(n_targets: int, x_max: float, y_max: float,
 # On-disk GraphBank schema version, embedded in every .npz and verified at
 # load: format changes can never silently load a stale cache or export.
 # Bump together with coverage._BANK_FORMAT when bank fields/semantics change.
-BANK_SCHEMA = 6
+BANK_SCHEMA = 7
 
 
 def save_graph_bank(path: str, bank) -> None:

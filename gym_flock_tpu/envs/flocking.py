@@ -1,6 +1,6 @@
 """Flocking environment family — pure-JAX double-integrator swarms.
 
-TPU-native re-design of the reference flocking envs:
+Batched, jit-compiled re-design of the reference flocking envs:
 
 * ``FlockingRelativeEnv``  — reference flocking/flocking_relative.py:18-305
 * ``FlockingAbsoluteEnv``  — reference flocking/flocking.py:5-25 (``Flocking-v0``)
@@ -27,7 +27,7 @@ from typing import Any, Dict, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from gym_flock_tpu.core import struct
 
 from gym_flock_tpu.core.env import Env, EnvState
 from gym_flock_tpu.core.spaces import Box
@@ -137,12 +137,10 @@ def _pairwise_channels(x: jax.Array, obstacle_mask: jax.Array | None = None,
                        exact: bool = False):
     """Channel-separated pairwise diffs: (dx, dy, dvx, dvy, r2), each [N, N].
 
-    TPU layout note: the reference materializes one [N, N, 4] ``diff`` tensor
-    (flocking_relative.py:113).  On TPU a minor dimension of 4 pads to the
-    128-lane tile — a 32x memory blowup that makes the kernel HBM-bound
-    (measured ~160x slower).  Keeping each channel as its own [N, N] array
-    (structure-of-arrays) tiles perfectly and lets XLA fuse the whole
-    feature/expert chain into the reductions.
+    Layout note: the reference materializes one [N, N, 4] ``diff`` tensor
+    (flocking_relative.py:113).  Keeping each channel as its own [N, N]
+    array (structure-of-arrays) avoids a minor dimension of 4 and lets XLA
+    fuse the whole feature/expert chain into the reductions.
     """
     px, py, vx, vy = x[:, 0], x[:, 1], x[:, 2], x[:, 3]
     dx = px[:, None] - px[None, :]
@@ -221,9 +219,9 @@ def turner_potential_grad(pos_diff_c: jax.Array, r2: jax.Array, comm_radius) -> 
     Perf: expressed through ``inv = 1/r2`` so that the products
     ``pos_diff*inv`` / ``pos_diff*inv^2`` are common subexpressions with
     :func:`flocking_features` — in the fused expert+step program this cuts
-    the [N,N] division count from 5 to 1 (the kernel is VPU
-    division-throughput-bound; the reference formulation spends 2 divides
-    per channel, flocking_relative.py:223).
+    the [N,N] division count from 5 to 1 (divides are the dearest
+    elementwise operation of the pass; the reference formulation spends 2
+    divides per channel, flocking_relative.py:223).
     """
     inv = 1.0 / r2
     inv2 = inv * inv
@@ -1011,26 +1009,16 @@ class FlockingTwoFlocksEnv(FlockingRelativeEnv):
 
 
 class LargeFlockingEnv(FlockingRelativeEnv):
-    """Large-swarm variant (N >~ 1k): Pallas-fused observation/expert path.
+    """Large-swarm variant (N >~ 1k): fused observation/expert pass.
 
     Same dynamics, reward, and expert semantics as FlockingRelativeEnv, but
     the observation is ``(state_values [N,6], degree [N])`` instead of
     ``(values, adjacency [N,N])`` — at this scale a dense adjacency is the
     memory bottleneck (SURVEY.md §5.7), so consumers aggregate through
     ``gym_flock_tpu.ops.adjacency_matmul`` / ``khop_aggregate`` instead of
-    receiving A.  All pairwise reductions run through the blockwise
-    ``ops.pallas_flocking.flocking_sums`` kernel (O(N) HBM traffic).
-
-    Batching: the kernel carries a native batch grid dimension and a
-    ``custom_vmap`` rule, so ``jax.vmap`` over this env compiles ONCE for
-    any batch size (naively vmapping a pallas_call builds one Mosaic
-    program per lane and is pathologically slow to compile at large N).
-    Measured (v5e, fetch-amortized best-of-3): N=4096 single stream 854
-    env-steps/s = 3.5M agent-steps/s; vmapped B=16 through the full env API
-    (expert + step + obs) 1,924 env-steps/s = 7.9M agent-steps/s — which is
-    the kernel roofline: 2 fused passes/step x 16 x 4096^2 pairs at the
-    kernel's ~60 Gpair/s.  Kernel-only rates and the timing methodology:
-    benchmarks/large_flocking_bench.py.
+    receiving A.  All pairwise reductions run through the fused
+    ``ops.pallas_flocking.flocking_sums`` pass (O(N) memory traffic);
+    ``jax.vmap`` over this env is native.
     """
 
     def _obs(self, state: FlockingState, params: FlockingParams):
@@ -1066,12 +1054,9 @@ class LargeFlockingEnv(FlockingRelativeEnv):
         if channels == "core":
             return flocking_sums(x, params.comm_radius, params.comm_radius2)
         # expert channels (10/11: adjacency-masked grad sums) live in the
-        # "full" set of the cross-block kernel
-        from gym_flock_tpu.ops.pallas_flocking import mosaic_supported
-
+        # "full" set of the cross-block pass
         return flocking_sums_block(
-            x, x, 0, 0, params.comm_radius, params.comm_radius2,
-            interpret=not mosaic_supported(), channels="full",
+            x, x, 0, 0, params.comm_radius, params.comm_radius2
         )
 
     def _unpack_sums(self, s, x, centralized):
@@ -1097,7 +1082,7 @@ class LargeFlockingEnv(FlockingRelativeEnv):
         return values, network, gx, gy, dvx, dvy
 
     def _fused_pass(self, x, params, centralized):
-        # flocking_sums produces obs AND expert channels in one blockwise
+        # flocking_sums produces obs AND expert channels in one fused
         # pass; see _unpack_sums for the layout
         s = self._sums(x, params, channels="core" if centralized else "expert")
         return self._unpack_sums(s, x, centralized)
@@ -1113,9 +1098,7 @@ class SparseFlockingEnv(LargeFlockingEnv):
     EXACT — the Hilbert-sort + bbox block pruning of
     ``ops.sparse_flocking`` only removes pairs with zero contribution; only
     float summation order differs), but the observation and the centralized
-    expert scale with the neighbor count, not the swarm size: measured ~15x
-    the dense kernel at N=65536 on one v5e chip (6.4 ms vs ~95 ms per fused
-    pass).  Requires ``n_agents`` a multiple of 128.  Pathologically
+    expert scale with the neighbor count, not the swarm size.  Requires ``n_agents`` a multiple of 128.  Pathologically
     clustered swarms exceed the candidate-table capacity and fall back to
     the dense kernel for the batch — never wrong, only slower.
     """
@@ -1153,7 +1136,7 @@ class SparseFlockingEnv(LargeFlockingEnv):
     # ------------------------------------------- cross-step Verlet rollout
     # The fused rollout scan itself lives in the base class; the sparse env
     # only supplies the carry hooks: a skin-expanded candidate table
-    # (26% of the sparse pass at N=65k, measured) carried through the scan
+    # carried through the scan
     # and rebuilt only when an agent has moved more than ``verlet_skin/2``
     # since the last build — see ops.sparse_flocking.flocking_sums_sparse_verlet
     # for the exactness argument.  ``params.verlet_skin=0`` recovers the

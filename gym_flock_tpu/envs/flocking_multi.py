@@ -1,6 +1,6 @@
 """Delayed K-hop aggregation flocking — pure-JAX FlockingMultiEnv.
 
-TPU-native re-design of the reference's ``old/flocking_multi.py:16-300``
+Batched, jit-compiled re-design of the reference's ``old/flocking_multi.py:16-300``
 (SURVEY.md §2.2 #22): the environment itself maintains the multi-hop
 aggregated observation of Tolstaya et al.'s delayed-aggregation GNN — each
 step, every agent receives the mean of its neighbors' PREVIOUS aggregation
@@ -17,8 +17,8 @@ pooling modes live in ``gym_flock_tpu.models``/``ops.khop_aggregate``).
 The masked-mean pooling replaces the reference's NaN-poisoning trick
 (``a_net[a_net == 0] = np.nan`` then ``np.nanmean``,
 old/flocking_multi.py:238-263): a degree-normalized masked matmul is
-mathematically identical (isolated agents pool to zero) and runs on the MXU
-instead of materializing an [N, N, F] NaN tensor.
+mathematically identical (isolated agents pool to zero) and is one matrix
+product instead of an [N, N, F] NaN tensor.
 
 NOTE: upstream this class is dead code that cannot even be constructed —
 it reads ``old/params_flock.cfg`` which does not exist
@@ -30,7 +30,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from gym_flock_tpu.core import struct
 
 from gym_flock_tpu.core.env import Env, EnvState
 from gym_flock_tpu.core.spaces import Box
@@ -90,7 +90,10 @@ def _aggregate(x: jax.Array, x_agg: jax.Array, init_vel: jax.Array, params):
 
     prev = x_agg[:, : nx * (params.filter_len - 1)]  # drop the oldest tap
     deg = jnp.sum(adj, axis=0)  # in-degree of each receiver j
-    pooled = (adj.T @ prev) / jnp.maximum(deg, 1.0)[:, None]
+    # full float32 (not TF32 on a GPU): the aggregation is the environment's
+    # observation, not a model product
+    pooled = jnp.matmul(adj.T, prev, precision=jax.lax.Precision.HIGHEST)
+    pooled = pooled / jnp.maximum(deg, 1.0)[:, None]
     pooled = jnp.where(deg[:, None] > 0, pooled, 0.0)  # nanmean-of-empty -> 0
     return jnp.concatenate((feats, pooled), axis=1)
 

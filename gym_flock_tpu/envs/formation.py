@@ -1,6 +1,6 @@
 """Formation flying — 3-agent single-integrator goal seeking.
 
-TPU-native re-design of reference gym_flock/envs/formation/formation_flying.py:18-213
+Batched, jit-compiled re-design of reference gym_flock/envs/formation/formation_flying.py:18-213
 (config values inlined from formation/formation_flying.cfg): agents start at
 fixed points on the x-axis and must reach a fixed goal triangle; reward is
 the negative sum of squared distances to goals (:81-90); connectivity is a
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from gym_flock_tpu.core import struct
 
 from gym_flock_tpu.core.env import Env, EnvState
 from gym_flock_tpu.core.spaces import Box

@@ -1,6 +1,6 @@
 """Networked LQR on a random geometric graph.
 
-TPU-native re-design of reference gym_flock/envs/linear/lqr.py:12-108 (config
+Batched, jit-compiled re-design of reference gym_flock/envs/linear/lqr.py:12-108 (config
 values inlined from linear/params_lqr.cfg): node positions drawn uniformly,
 system matrix A = RBF kernel of positions, exact discretization via matrix
 exponential (reference :47-53, ``scipy.linalg.expm`` -> here
@@ -17,12 +17,20 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from gym_flock_tpu.core import struct
 
 from gym_flock_tpu.core.env import Env, EnvState
 from gym_flock_tpu.core.spaces import Box
 
 __all__ = ["LQRParams", "LQRState", "LQREnv", "build_lqr_system", "lqr_factory"]
+
+
+# The system build, the Riccati sweep, the dynamics and the expert are
+# float32 products that a GPU would otherwise run in TF32 (about three
+# decimal digits); the dynamics are the environment, not a model, so they
+# keep full float32 precision on every backend.
+def _highest():
+    return jax.default_matmul_precision("highest")
 
 
 @struct.dataclass
@@ -91,12 +99,13 @@ def build_lqr_system(key: jax.Array, params: LQRParams) -> LQRSystem:
     rho = float(_np.max(_np.abs(_np.linalg.eigvals(_np.asarray(a_net)))))
     a_net = a_net / rho
 
-    a_expm = jax.scipy.linalg.expm(params.dt * a_sys)
-    eye = jnp.eye(n)
-    b_sys = jnp.linalg.inv(a_sys) @ (a_expm - eye) @ (params.b_scale * eye)
-    q_sys = jnp.linalg.inv(2.0 * a_sys) @ (
-        jax.scipy.linalg.expm(params.dt * 2.0 * a_sys) - eye
-    )
+    with _highest():
+        a_expm = jax.scipy.linalg.expm(params.dt * a_sys)
+        eye = jnp.eye(n)
+        b_sys = jnp.linalg.inv(a_sys) @ (a_expm - eye) @ (params.b_scale * eye)
+        q_sys = jnp.linalg.inv(2.0 * a_sys) @ (
+            jax.scipy.linalg.expm(params.dt * 2.0 * a_sys) - eye
+        )
     q_sys = (q_sys + q_sys.T) / 2.0
     r_sys = params.dt * eye * (params.b_scale**2)
     cov00 = q_sys[0, 0] * params.var
@@ -123,9 +132,10 @@ def _riccati_gain(sys: LQRSystem) -> jax.Array:
         P2 = q + a.T @ P @ (a - b @ k)
         return P2, None
 
-    P, _ = jax.lax.scan(body, sys.q_sys, None, length=50)
-    a, b, r = sys.a_sys, sys.b_sys, sys.r_sys
-    return jnp.linalg.solve(r + b.T @ P @ b, b.T @ P @ a)
+    with _highest():
+        P, _ = jax.lax.scan(body, sys.q_sys, None, length=50)
+        a, b, r = sys.a_sys, sys.b_sys, sys.r_sys
+        return jnp.linalg.solve(r + b.T @ P @ b, b.T @ P @ a)
 
 
 class LQREnv(Env[LQRParams, LQRState]):
@@ -145,8 +155,9 @@ class LQREnv(Env[LQRParams, LQRState]):
         xt = state.x.reshape((params.n_nodes, 1))
         ut = jnp.reshape(action, (params.n_nodes, 1))
         noise = sys.std_dev * jax.random.normal(key, (params.n_nodes, 1))
-        xt1 = sys.a_sys @ xt + sys.b_sys @ ut + noise
-        cost = (xt.T @ sys.q_sys @ xt + ut.T @ sys.r_sys @ ut)[0, 0]
+        with _highest():
+            xt1 = sys.a_sys @ xt + sys.b_sys @ ut + noise
+            cost = (xt.T @ sys.q_sys @ xt + ut.T @ sys.r_sys @ ut)[0, 0]
         new_state = state.replace(x=xt1, time=state.time + 1)
         done = new_state.time >= params.max_steps
         return new_state, (xt1, sys.a_net), -cost, done, {}
@@ -158,7 +169,8 @@ class LQREnv(Env[LQRParams, LQRState]):
         # the gain is state-independent: precomputed at system build; the
         # fixed-point fallback serves hand-built LQRSystems
         k = sys.k_gain if sys.k_gain is not None else _riccati_gain(sys)
-        return -(k @ state.x.reshape((-1, 1)))
+        with _highest():
+            return -(k @ state.x.reshape((-1, 1)))
 
     def observation_space(self, params):
         return Box(-params.max_z, params.max_z, (params.n_nodes, 1))

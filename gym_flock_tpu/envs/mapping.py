@@ -1,6 +1,6 @@
 """Mapping (target-observation) environment family — pure-JAX.
 
-TPU-native re-design of the reference's ``old/`` mapping envs (SURVEY.md
+Batched, jit-compiled re-design of the reference's ``old/`` mapping envs (SURVEY.md
 §2.2 #22), the predecessors of the spatial coverage family:
 
 * ``MappingEnv``      — reference old/mapping.py:15-267 (double integrator,
@@ -42,7 +42,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from gym_flock_tpu.core import struct
 
 from gym_flock_tpu.core.env import Env, EnvState
 from gym_flock_tpu.core.spaces import Box, Discrete
@@ -133,7 +133,7 @@ def _mapping_helpers(x: jax.Array, unobserved: jax.Array, params: MappingParams)
 
     Returns (state_values, state_network, obs_target, newly, credit).
     All pairwise work is dense-masked: [N,N] agent block plus an [N,T]
-    agent-target block — both MXU/VPU friendly with static shapes.
+    agent-target block — both fused elementwise passes with static shapes.
     """
     n, ka, kt = params.n_agents, params.nearest_agents, params.nearest_targets
 
@@ -164,13 +164,11 @@ def _mapping_helpers(x: jax.Array, unobserved: jax.Array, params: MappingParams)
     network = adj / n_neighbors if params.mean_pooling else adj
 
     # --- targets ---------------------------------------------------------
-    # The k nearest unobserved targets per agent.  NOT jax.lax.top_k: on
-    # TPU, TopK over the T = n_agents^2 = 10,000-wide target axis measured
-    # ~1 Gpair/s aggregate (2% of the flocking kernels' pair rate) and
-    # dominated the whole env step.  Instead run kt (= 7) rounds of
-    # min + first-match-index — each round is a plain fused VPU pass over
-    # the RECOMPUTED [N, T] distance expression (nothing [N, T]-sized is
-    # ever materialized; exclusions are <= kt-1 index compares per
+    # The k nearest unobserved targets per agent.  NOT jax.lax.top_k over
+    # the T = n_agents^2 = 10,000-wide target axis: instead run kt (= 7)
+    # rounds of min + first-match-index — each round is a plain fused pass
+    # over the RECOMPUTED [N, T] distance expression (nothing [N, T]-sized
+    # is ever materialized; exclusions are <= kt-1 index compares per
     # element).  Exactly equivalent to stable top_k: among tied distances
     # the lower index wins each round, the next round takes the next one.
     tgt = params.target_x  # [T, 2]
@@ -221,8 +219,8 @@ def _mapping_helpers(x: jax.Array, unobserved: jax.Array, params: MappingParams)
 
     # per-agent credit: +1 iff nearest to >=1 newly observed target
     # (duplicate-index assignment semantics, old/mapping_vel.py:209-211).
-    # First-match min instead of argmin: variadic (value, index) reduces
-    # vectorize poorly on TPU (same routing as the coverage packed min).
+    # First-match min instead of argmin: one single-value reduce instead of
+    # a variadic (value, index) one (same routing as the coverage packed min).
     iota_n = jnp.arange(n, dtype=jnp.int32)
     nearest_agent = jnp.min(
         jnp.where(r2_t_masked == col_min[None, :], iota_n[:, None], n), axis=0

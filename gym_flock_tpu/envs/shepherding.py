@@ -1,6 +1,6 @@
 """Shepherding environment — unicycle herding with a line-of-sight expert.
 
-TPU-native re-design of reference gym_flock/envs/shepherding/shepherding.py:14-332:
+Batched, jit-compiled re-design of reference gym_flock/envs/shepherding/shepherding.py:14-332:
 10 shepherds herd 20 sheep into a goal disk at the origin.  Unicycle dynamics
 with feedback linearization (offset d=0.3, reference :106-115); sheep are
 repelled by shepherds (weight 0.45) and other sheep (weight 0.075) through
@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from gym_flock_tpu.core import struct
 
 from gym_flock_tpu.core.env import Env, EnvState
 from gym_flock_tpu.core.spaces import Box

@@ -11,7 +11,7 @@ This is deliberately host-side: the solver is sequential combinatorial
 search (the reference's is too — in-process C++ behind SWIG).  For bulk
 on-device rollouts use the greedy expert (``CoverageEnv.controller``);
 use this policy to generate the higher-quality imitation labels, batched
-across episodes on CPU while the TPU rolls out.
+across episodes on CPU while the device rolls out.
 """
 from __future__ import annotations
 

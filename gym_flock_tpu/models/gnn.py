@@ -8,23 +8,24 @@ coverage envs, decoded by the TensorFlow ``unpack_obs`` helper
 
 * :func:`unpack_obs` — JAX re-design of the TF helper: flat/batched dict obs
   -> statically-shaped masked graph (no boolean_mask; padding stays, a mask
-  travels with the data — the TPU-friendly formulation);
+  travels with the data, so shapes stay static);
 * :class:`AggregationGNN` — the K-hop aggregation GNN used by the flocking
   papers (and mirrored by the reference's legacy in-env aggregation,
   old/flocking_multi.py:180-266): z_k = A^k X stacked over k, per-agent MLP;
 * :class:`EdgeGraphNet` — message-passing network over the padded edge list
   for the coverage graphs, scoring each robot's action edges.
 
-All models are pure flax modules; training lives in
-``gym_flock_tpu.parallel.train``.
+Each model is a frozen dataclass of hyperparameters with pure
+``init(key, *inputs) -> params`` and ``apply(params, *inputs)`` methods over
+a nested params dict; training lives in ``gym_flock_tpu.parallel.train``.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+import dataclasses
+from typing import Callable, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 __all__ = [
     "unpack_obs",
@@ -123,19 +124,47 @@ def unpack_obs_state(
     return g
 
 
-class _MLP(nn.Module):
-    features: Sequence[int]
+def _mlp_init(key, d_in: int, features: Sequence[int]):
+    """Parameters of a ReLU MLP: ``{"Dense_i": {"kernel", "bias"}}`` with
+    LeCun-normal kernels and zero biases."""
+    dims = (d_in,) + tuple(features)
+    keys = jax.random.split(key, len(features))
+    init = jax.nn.initializers.lecun_normal()
+    return {
+        f"Dense_{i}": {
+            "kernel": init(k, (dims[i], dims[i + 1]), jnp.float32),
+            "bias": jnp.zeros((dims[i + 1],), jnp.float32),
+        }
+        for i, k in enumerate(keys)
+    }
 
-    @nn.compact
-    def __call__(self, x):
-        for i, f in enumerate(self.features):
-            x = nn.Dense(f)(x)
-            if i + 1 < len(self.features):
-                x = nn.relu(x)
-        return x
+
+def _mlp_apply(p, x):
+    n = len(p)
+    for i in range(n):
+        layer = p[f"Dense_{i}"]
+        x = x @ layer["kernel"] + layer["bias"]
+        if i + 1 < n:
+            x = jax.nn.relu(x)
+    return x
 
 
-class AggregationGNN(nn.Module):
+class _Model:
+    """Pure model: ``init(key, *inputs) -> params`` and
+    ``apply(params, *inputs)``; params are ``{"params": {"_MLP_i": ...}}``."""
+
+    def clone(self, **changes):
+        return dataclasses.replace(self, **changes)
+
+
+def _khop_mlp_init(model, key, features):
+    d_in = model.k_hops * features.shape[-1]
+    mlp = _mlp_init(key, d_in, tuple(model.hidden) + (model.out_dim,))
+    return {"params": {"_MLP_0": mlp}}
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregationGNN(_Model):
     """K-hop aggregation GNN for flocking-style (features, adjacency) obs.
 
     z = [X, AX, A^2 X, ..., A^{K-1} X] concatenated per agent, followed by a
@@ -143,7 +172,6 @@ class AggregationGNN(nn.Module):
     returns as ``state_network``, A^k X is exactly the k-hop neighborhood
     average — the architecture of the flocking papers (README.md:47-58) and
     of the reference's legacy in-env aggregation (old/flocking_multi.py:180-266).
-    The A^k X products are dense [N,N]x[N,F] matmuls — MXU-shaped.
     """
 
     k_hops: int = 3
@@ -154,8 +182,10 @@ class AggregationGNN(nn.Module):
     # squashes them to a trainable scale while staying odd and smooth.
     squash_inputs: bool = True
 
-    @nn.compact
-    def __call__(self, features: jax.Array, adjacency: jax.Array):
+    def init(self, key, features: jax.Array, adjacency: jax.Array):
+        return _khop_mlp_init(self, key, features)
+
+    def apply(self, params, features: jax.Array, adjacency: jax.Array):
         if self.squash_inputs:
             features = jnp.arcsinh(features)
         zs = [features]
@@ -164,18 +194,19 @@ class AggregationGNN(nn.Module):
             z = jnp.matmul(adjacency, z)
             zs.append(z)
         h = jnp.concatenate(zs, axis=-1)  # [N, K*F]
-        return _MLP(tuple(self.hidden) + (self.out_dim,))(h)
+        return _mlp_apply(params["params"]["_MLP_0"], h)
 
 
-class LargeAggregationGNN(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class LargeAggregationGNN(_Model):
     """AggregationGNN for swarms too large to materialize the adjacency.
 
     Same architecture as :class:`AggregationGNN`, but takes the raw agent
     state ``x [N, 4]`` instead of a dense ``[N, N]`` adjacency: the A^k X
-    products run through ``ops.adjacency_matmul`` — per-tile on-the-fly
-    adjacency into the MXU, O(N*F) memory, differentiable via its custom
-    VJP — so the policy trains end-to-end at N where a dense A would be
-    gigabytes (1 GB at N=16k).
+    products run through ``ops.adjacency_matmul`` — the adjacency is built
+    tile by tile from positions, O(N*F) memory, differentiable via its
+    custom VJP — so the policy trains end-to-end at N where a dense A would
+    be gigabytes (1 GB at N=16k).
     """
 
     k_hops: int = 3
@@ -183,14 +214,15 @@ class LargeAggregationGNN(nn.Module):
     out_dim: int = 2
     comm_radius2: float = 0.81
     squash_inputs: bool = True
-    interpret: bool = False  # Pallas interpreter (CPU testing)
     # Override the aggregation, e.g. with the agent-axis-sharded
     # parallel.agent_shard.khop_aggregate_sharded inside shard_map (the
     # parameter tree is identical, so weights transfer between variants).
     aggregate_fn: Optional[Callable[[jax.Array, jax.Array], jax.Array]] = None
 
-    @nn.compact
-    def __call__(self, x: jax.Array, features: jax.Array):
+    def init(self, key, x: jax.Array, features: jax.Array):
+        return _khop_mlp_init(self, key, features)
+
+    def apply(self, params, x: jax.Array, features: jax.Array):
         from gym_flock_tpu.ops.pallas_flocking import khop_aggregate
 
         if self.squash_inputs:
@@ -199,13 +231,13 @@ class LargeAggregationGNN(nn.Module):
             h = self.aggregate_fn(x, features)
         else:
             h = khop_aggregate(
-                x, features, self.comm_radius2, self.k_hops,
-                mean_pool=True, interpret=self.interpret,
+                x, features, self.comm_radius2, self.k_hops, mean_pool=True
             )
-        return _MLP(tuple(self.hidden) + (self.out_dim,))(h)
+        return _mlp_apply(params["params"]["_MLP_0"], h)
 
 
-class EdgeGraphNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class EdgeGraphNet(_Model):
     """Message-passing GNN over the padded coverage edge list.
 
     Rounds of: edge update from (edge_feat, sender_h, receiver_h) -> masked
@@ -215,30 +247,52 @@ class EdgeGraphNet(nn.Module):
 
     Static shapes throughout: padding edges carry zero messages via
     ``edge_mask`` instead of being filtered out.  Operates on a single
-    (unbatched) graph — ``jax.vmap`` the bound module over a batch.
+    (unbatched) graph — ``jax.vmap`` ``apply`` over a batch.
+
+    MLP order in the params: node encoder, edge encoder, then per round the
+    message and node-update MLPs, then the edge-logit head.
     """
 
     latent: int = 64
     rounds: int = 2
 
-    @nn.compact
-    def __call__(self, graph):
+    def init(self, key, graph):
+        lat = self.latent
+        shapes = [
+            (graph["nodes"].shape[-1], (lat,)),
+            (graph["edges"].shape[-1], (lat,)),
+        ]
+        for _ in range(self.rounds):
+            shapes += [(3 * lat, (lat, lat)), (2 * lat, (lat, lat))]
+        shapes.append((lat, (lat, 1)))
+        keys = jax.random.split(key, len(shapes))
+        return {
+            "params": {
+                f"_MLP_{i}": _mlp_init(k, d_in, feats)
+                for i, (k, (d_in, feats)) in enumerate(zip(keys, shapes))
+            }
+        }
+
+    def apply(self, params, graph):
+        p = params["params"]
         nodes, edges = graph["nodes"], graph["edges"]  # [N, nf], [E, ef]
         senders, receivers = graph["senders"], graph["receivers"]  # [E]
         mask = graph["edge_mask"][:, None].astype(nodes.dtype)  # [E, 1]
         n = nodes.shape[0]
 
-        h = _MLP((self.latent,))(nodes)
-        e_feat = _MLP((self.latent,))(edges)
+        h = _mlp_apply(p["_MLP_0"], nodes)
+        e_feat = _mlp_apply(p["_MLP_1"], edges)
 
-        for _ in range(self.rounds):
+        for r in range(self.rounds):
             msg_in = jnp.concatenate([e_feat, h[senders], h[receivers]], axis=-1)
-            msg = _MLP((self.latent, self.latent))(msg_in) * mask
+            msg = _mlp_apply(p[f"_MLP_{2 + 2 * r}"], msg_in) * mask
             agg = jax.ops.segment_sum(msg, receivers, num_segments=n)
-            h = _MLP((self.latent, self.latent))(jnp.concatenate([h, agg], axis=-1))
+            h = _mlp_apply(
+                p[f"_MLP_{3 + 2 * r}"], jnp.concatenate([h, agg], axis=-1)
+            )
             e_feat = msg
 
-        edge_logits = _MLP((self.latent, 1))(e_feat)  # [E, 1]
+        edge_logits = _mlp_apply(p[f"_MLP_{2 + 2 * self.rounds}"], e_feat)  # [E, 1]
         return h, edge_logits
 
 

@@ -6,15 +6,14 @@ Re-designs the reference's NumPy geometry kernels
 functions with static shapes:
 
 * every kernel is O(N^2) dense — at swarm sizes (N ~ 1e2..1e3) dense pairwise
-  work lays out perfectly on the TPU VPU/MXU and fuses into one XLA program;
+  work is plain elementwise + reduction code that fuses into one XLA program;
 * "edge lists" become fixed-size *masked* index arrays (senders, receivers,
   valid-mask) instead of the reference's variable-length ``np.nonzero``
   outputs, so shapes stay static under jit;
 * k-NN uses ``jax.lax.top_k`` instead of sklearn/argpartition.
 
-For N large enough that the N x N feature tensor stops fitting comfortably in
-VMEM there is a blockwise Pallas variant in
-``gym_flock_tpu.ops.pallas_pairwise``.
+For N large enough that [N, N] arrays no longer belong in device memory, the
+fused passes of ``gym_flock_tpu.ops.pallas_flocking`` never materialize them.
 """
 from __future__ import annotations
 
@@ -104,7 +103,7 @@ def radius_edges_masked(
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
     """Radius graph as a *dense masked* edge set.
 
-    TPU-native replacement for reference utils.py:8-24 (``_get_graph_edges``)
+    Static-shape replacement for reference utils.py:8-24 (``_get_graph_edges``)
     whose ``np.nonzero`` output length is data-dependent.  Here the edge set
     is the full N x M grid with a boolean validity mask; downstream code
     either consumes the mask directly or compacts on the host at graph-build
@@ -141,7 +140,7 @@ def knn_edges(
       closest), implemented exactly as the reference: take k+1 nearest, then
       remove the argmin.
 
-    Uses ``lax.top_k`` on negated distances (MXU/VPU-friendly) instead of
+    Uses ``lax.top_k`` on negated distances instead of
     ``np.argpartition``; output is dense [N, k] index/feature arrays rather
     than a flattened variable-length edge list, which is the natural static
     shape for vmap.

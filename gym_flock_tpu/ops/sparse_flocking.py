@@ -4,9 +4,9 @@ The dense pairwise pass is O(N^2), but a constant-density swarm has O(1)
 neighbors inside ``comm_radius`` (the reference resets ~1 agent per unit
 area, flocking/utils.py:23-30) — at N=16k the dense kernel spends >99% of
 its pair tests on agents provably out of range.  This module prunes at
-BLOCK granularity, which is the TPU-native version of a cell list: no
-per-agent gathers (TPU gathers run far below HBM bandwidth — see
-docs/SCALING.md), just whole [128, 128] tiles skipped.
+BLOCK granularity, a cell list without per-agent gathers: whole
+[128, 128] tiles are skipped, and the tiles that run load contiguous
+128-agent column blocks.
 
 Pipeline (all static shapes, fully jittable):
   1. Hilbert-sort agents: quantize positions to ``comm_radius`` cells and
@@ -19,9 +19,10 @@ Pipeline (all static shapes, fully jittable):
      is EXACT — identical adjacency, gradients, and degree as the dense
      kernel; only float summation order differs).  Candidates compact into
      a static [n_blocks, K] table.
-  3. The table drives the cross-block channel-sum tile over only the
-     listed pairs; with fewer than K real candidates the padding slots are
-     masked out.
+  3. The table drives the cross-block channel sums over only the listed
+     pairs: on the GPU a Pallas kernel (Triton route) whose programs load
+     only their listed column blocks, elsewhere an XLA scan over the K
+     slots; padding slots are skipped.
   4. Results scatter back through the inverse permutation.
 
 Capacity: a row with more than K in-range blocks OVERFLOWS; the result
@@ -41,8 +42,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-from gym_flock_tpu.ops.pallas_flocking import N_OUT, mosaic_supported
+from gym_flock_tpu.ops.pallas_flocking import N_OUT
 
 __all__ = [
     "morton_order",
@@ -167,7 +169,7 @@ def block_pair_table(xs: jax.Array, comm_radius, k_max: int, skin=0.0):
 def _block_sums_tile(xr, xc, row_off, col_off, comm_radius, comm_radius2,
                      expert=False):
     """Core-channel sums of one [BLOCK, BLOCK] tile (XLA; mirrors
-    ops.pallas_flocking._block_sums_kernel channels 0..8).  ``expert`` adds
+    ops.pallas_flocking.flocking_sums_block channels 0..8).  ``expert`` adds
     the adjacency-masked gradient sums at channels 10/11 (decentralized
     Turner expert; channel 9 — min-r2 — is not part of the sparse contract
     and stays zero)."""
@@ -215,8 +217,8 @@ def _sparse_sums_sorted(xs: jax.Array, table: jax.Array, comm_radius, comm_radiu
     ``xs`` [N, 4] curve-sorted (see hilbert_order), ``table`` [n_b, k_max].
     XLA formulation:
     vmap over row blocks, scan over the k_max candidate slots with
-    dynamic-slice loads of column blocks (whole contiguous 128-row blocks —
-    the TPU-friendly granularity).
+    dynamic-slice loads of column blocks (whole contiguous 128-row blocks,
+    one coalesced load each).
     """
     n = xs.shape[0]
     n_b = n // BLOCK
@@ -246,117 +248,105 @@ def _sparse_sums_sorted(xs: jax.Array, table: jax.Array, comm_radius, comm_radiu
     return jnp.concatenate([out, jnp.zeros((n, N_OUT - nc), xs.dtype)], axis=1)
 
 
-def _sparse_kernel(
-    scal, table, valid, px_c, py_c, vx_c, vy_c, px_r, py_r, vx_r, vy_r, out_ref,
-    *, bi, k_max, expert
-):
-    # grid = (B, n_b, k_max); the column block for slot (b, i, k) was DMA'd
-    # by the BlockSpec index map reading table[b, i, k] (scalar prefetch)
-    b = pl.program_id(0)
-    i = pl.program_id(1)
-    k = pl.program_id(2)
-    comm_radius = scal[0]
-    comm_radius2 = scal[1]
+_TILE_ROWS = 32  # row agents per kernel program
+_TILE_COLS = 32  # column agents per inner step
 
-    @pl.when(k == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
 
-    @pl.when(valid[b, i, k] != 0)
-    def _():
-        j = table[b, i, k]
-        row_ids = i * bi + jax.lax.broadcasted_iota(jnp.int32, (bi, bi), 0)
-        col_ids = j * bi + jax.lax.broadcasted_iota(jnp.int32, (bi, bi), 1)
-        dx = px_c[0] - px_r[0]
-        dy = py_c[0] - py_r[0]
-        dvx = vx_c[0] - vx_r[0]
-        dvy = vy_c[0] - vy_r[0]
+def _table_sums_kernel(scal_ref, table_ref, rx_ref, ry_ref, rvx_ref, rvy_ref,
+                       cx_ref, cy_ref, cvx_ref, cvy_ref, out_ref, *, expert):
+    """One program: ``_TILE_ROWS`` sorted agents against every 128-agent
+    column block its row block's table lists (valid slots first, -1 after);
+    the channel sums stay in registers and are stored channel-major."""
+    bi = rx_ref.shape[0]
+    cr, cr2 = scal_ref[0], scal_ref[1]
+    rx, ry, rvx, rvy = rx_ref[...], ry_ref[...], rvx_ref[...], rvy_ref[...]
+    rid = pl.program_id(1) * bi + jnp.arange(bi, dtype=jnp.int32)
+    n_slots = jnp.sum((table_ref[...] >= 0).astype(jnp.int32))
+
+    def chunk(start, acc):
+        cols = pl.ds(start, _TILE_COLS)
+        dx = rx[:, None] - cx_ref[cols][None, :]
+        dy = ry[:, None] - cy_ref[cols][None, :]
+        dvx = rvx[:, None] - cvx_ref[cols][None, :]
+        dvy = rvy[:, None] - cvy_ref[cols][None, :]
+        cid = start + jnp.arange(_TILE_COLS, dtype=jnp.int32)
         r2 = dx * dx + dy * dy
-        r2 = jnp.where(row_ids == col_ids, jnp.inf, r2)
-        adj = (r2 < comm_radius2).astype(dx.dtype)
+        r2 = jnp.where(rid[:, None] == cid[None, :], jnp.inf, r2)
+        adj = (r2 < cr2).astype(jnp.float32)
         inv = 1.0 / r2
         inv2 = inv * inv
-        gfac = jnp.where(r2 > comm_radius, 0.0, 2.0 * inv * (1.0 - inv))
-        sums = jnp.stack(
-            [
-                jnp.sum(dvx * adj, axis=1),
-                jnp.sum(dx * inv2 * adj, axis=1),
-                jnp.sum(dx * inv * adj, axis=1),
-                jnp.sum(dvy * adj, axis=1),
-                jnp.sum(dy * inv2 * adj, axis=1),
-                jnp.sum(dy * inv * adj, axis=1),
-                jnp.sum(dx * gfac, axis=1),
-                jnp.sum(dy * gfac, axis=1),
-                jnp.sum(adj, axis=1),
-            ]
-            + (
-                [
-                    jnp.zeros((bi,), dx.dtype),  # ch9 slot (no min-r2)
-                    jnp.sum(dx * gfac * adj, axis=1),
-                    jnp.sum(dy * gfac * adj, axis=1),
-                ]
-                if expert
-                else []
-            ),
-            axis=1,
-        )
-        pad = jnp.zeros((bi, N_OUT - sums.shape[1]), dx.dtype)
-        out_ref[:] = out_ref[:] + jnp.concatenate([sums, pad], axis=1)[None]
+        gfac = jnp.where(r2 > cr, 0.0, 2.0 * inv * (1.0 - inv))
+        terms = [
+            dvx * adj, dx * inv2 * adj, dx * inv * adj,
+            dvy * adj, dy * inv2 * adj, dy * inv * adj,
+            dx * gfac, dy * gfac, adj,
+        ]
+        if expert:
+            terms += [dx * gfac * adj, dy * gfac * adj]
+        return tuple(a + jnp.sum(t, axis=1) for a, t in zip(acc, terms))
+
+    def slot(s, acc):
+        base = table_ref[s] * BLOCK
+        for c in range(BLOCK // _TILE_COLS):
+            acc = chunk(base + c * _TILE_COLS, acc)
+        return acc
+
+    zero = jnp.zeros((bi,), jnp.float32)
+    acc = jax.lax.fori_loop(0, n_slots, slot, (zero,) * (11 if expert else 9))
+    # channel layout of ops.pallas_flocking; 9 (min-r2) is not in the
+    # sparse contract and stays zero
+    chans = list(acc[:9]) + ([zero, acc[9], acc[10]] if expert else [])
+    for c in range(N_OUT):
+        out_ref[c, :] = chans[c] if c < len(chans) else zero
 
 
-def _sparse_sums_pallas(xs: jax.Array, table: jax.Array, comm_radius, comm_radius2,
-                        interpret: bool = False, expert: bool = False):
-    """Table-driven Pallas pass: one grid step per listed block pair.
+def _table_sums_triton(xs, table, comm_radius, comm_radius2, expert,
+                       interpret=False):
+    """Table-driven channel sums through Pallas' Triton route.
 
-    The candidate table is a scalar-prefetch operand, so the column-block
-    BlockSpec's index map reads it to decide WHICH block to DMA — the
-    cell-list indirection happens in the pipeline's address generation, not
-    as an XLA gather.  Invalid (padding) slots clamp to block 0 and skip
-    all compute via ``pl.when`` (the wasted DMA is 2 KB).
-    """
-    from jax.experimental.pallas import tpu as pltpu
-
+    ``xs`` [B, N, 4] curve-sorted swarms (N a multiple of 128), ``table``
+    [B, N/128, k] candidate column blocks.  One program per 32 sorted
+    agents; it loads only the column blocks its table row lists, so the
+    cell-list indirection is a per-program address, not a gather."""
     b, n, _ = xs.shape
-    n_b = n // BLOCK
-    k_max = table.shape[-1]
-    dtype = xs.dtype
-
-    valid = (table >= 0).astype(jnp.int32)
-    tbl = jnp.maximum(table, 0)
-
-    cols = [xs[:, :, c].reshape(b, n, 1) for c in range(4)]
-    rows = [xs[:, :, c].reshape(b, 1, n) for c in range(4)]
-    scal = jnp.asarray([comm_radius, comm_radius2], dtype)
-
-    col_spec = pl.BlockSpec((1, BLOCK, 1), lambda bb, i, k, s_, tbl_, v_: (bb, i, 0))
-    row_spec = pl.BlockSpec(
-        (1, 1, BLOCK), lambda bb, i, k, s_, tbl_, v_: (bb, 0, tbl_[bb, i, k])
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(b, n_b, k_max),
-        in_specs=[col_spec] * 4 + [row_spec] * 4,
-        out_specs=pl.BlockSpec(
-            (1, BLOCK, N_OUT), lambda bb, i, k, s_, tbl_, v_: (bb, i, 0)
-        ),
-    )
+    slots = pl.next_power_of_2(table.shape[-1])
+    table = jnp.pad(table.astype(jnp.int32), ((0, 0), (0, 0), (0, slots - table.shape[-1])),
+                    constant_values=-1)
+    parts = [xs[:, :, c].astype(jnp.float32) for c in range(4)]
+    scal = jnp.stack([jnp.asarray(comm_radius, jnp.float32),
+                      jnp.asarray(comm_radius2, jnp.float32)])
+    row = pl.BlockSpec((None, _TILE_ROWS), lambda e, i: (e, i))
+    col = pl.BlockSpec((None, n), lambda e, i: (e, 0))
+    per_block = BLOCK // _TILE_ROWS
     out = pl.pallas_call(
-        functools.partial(_sparse_kernel, bi=BLOCK, k_max=k_max, expert=expert),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((b, n, N_OUT), dtype),
+        functools.partial(_table_sums_kernel, expert=expert),
+        grid=(b, n // _TILE_ROWS),
+        in_specs=[pl.BlockSpec((2,), lambda e, i: (0,)),
+                  pl.BlockSpec((None, None, slots), lambda e, i: (e, i // per_block, 0))]
+        + [row] * 4 + [col] * 4,
+        out_specs=pl.BlockSpec((None, N_OUT, _TILE_ROWS), lambda e, i: (e, 0, i)),
+        out_shape=jax.ShapeDtypeStruct((b, N_OUT, n), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(scal, tbl, valid, *cols, *rows)
-    return out
+        name="flocking_sums_sparse",
+    )(scal, table, *parts, *parts)
+    return jnp.swapaxes(out, 1, 2).astype(xs.dtype)
 
 
-def _resolve_impl(impl: str, interpret: bool) -> str:
-    if impl == "auto":
-        return "pallas" if (mosaic_supported() or interpret) else "xla"
-    return impl
+def _table_sums(xs, table, comm_radius, comm_radius2, expert):
+    """Channel sums over the listed block pairs of sorted swarms ([B, N, 4],
+    [B, n_b, k]): the Triton kernel on the GPU, the XLA scan elsewhere."""
+    if jax.default_backend() == "gpu":
+        return _table_sums_triton(xs, table, comm_radius, comm_radius2, expert)
+    return jax.vmap(
+        lambda xsi, tablei: _sparse_sums_sorted(
+            xsi, tablei, comm_radius, comm_radius2, expert=expert
+        )
+    )(xs, table)
 
 
-def _sparse_path_batched(xs, perm, table, comm_radius, comm_radius2,
-                         impl, interpret, expert):
+def _sparse_path_batched(xs, perm, table, comm_radius, comm_radius2, expert):
     """Table-driven channel sums in sorted order, scattered back.
 
     All operands batched ([B, N, 4] / [B, N] / [B, n_b, k]); shared by
@@ -364,17 +354,7 @@ def _sparse_path_batched(xs, perm, table, comm_radius, comm_radius2,
     never diverge.
     """
     n = xs.shape[1]
-    if impl == "pallas":
-        out_sorted = _sparse_sums_pallas(
-            xs, table, comm_radius, comm_radius2, interpret=interpret,
-            expert=expert,
-        )
-    else:
-        out_sorted = jax.vmap(
-            lambda xsi, tablei: _sparse_sums_sorted(
-                xsi, tablei, comm_radius, comm_radius2, expert=expert
-            )
-        )(xs, table)
+    out_sorted = _table_sums(xs, table, comm_radius, comm_radius2, expert)
 
     def unsort(permi, outi):
         inv = (
@@ -387,20 +367,16 @@ def _sparse_path_batched(xs, perm, table, comm_radius, comm_radius2,
     return jax.vmap(unsort)(perm, out_sorted)
 
 
-def _dense_path_batched(xb, comm_radius, comm_radius2, interpret, expert):
-    """Dense-kernel fallback with the sparse channel contract ([B, N, 4])."""
+def _dense_path_batched(xb, comm_radius, comm_radius2, expert):
+    """Dense fallback with the sparse channel contract ([B, N, 4])."""
     from gym_flock_tpu.ops.pallas_flocking import flocking_sums, flocking_sums_block
 
     if expert:
         # "full" includes the masked-grad channels 10/11; ch9 (min-r2)
         # is zeroed — it is not part of the sparse contract
-        out = flocking_sums_block(
-            xb, xb, 0, 0, comm_radius, comm_radius2,
-            interpret=interpret or not mosaic_supported(),
-            channels="full",
-        )
+        out = flocking_sums_block(xb, xb, 0, 0, comm_radius, comm_radius2)
         return out.at[..., 9].set(0.0)
-    return flocking_sums(xb, comm_radius, comm_radius2, interpret=interpret)
+    return flocking_sums(xb, comm_radius, comm_radius2)
 
 
 def _flocking_sums_sparse_impl(
@@ -408,8 +384,6 @@ def _flocking_sums_sparse_impl(
     comm_radius,
     comm_radius2,
     k_max: int = 16,
-    interpret: bool = False,
-    impl: str = "auto",
     channels: str = "core",
 ):
     if channels not in ("core", "expert"):
@@ -433,17 +407,14 @@ def _flocking_sums_sparse_impl(
 
     xs, perm, table, overflow = jax.vmap(prep)(xb)
 
-    impl = _resolve_impl(impl, interpret)
-
     def sparse_path(operands):
         xs_, perm_, table_ = operands
         return _sparse_path_batched(
-            xs_, perm_, table_, comm_radius, comm_radius2, impl, interpret,
-            expert,
+            xs_, perm_, table_, comm_radius, comm_radius2, expert
         )
 
     def dense_path(operands):
-        return _dense_path_batched(xb, comm_radius, comm_radius2, interpret, expert)
+        return _dense_path_batched(xb, comm_radius, comm_radius2, expert)
 
     # the predicate is a batch-wide SCALAR: under vmap a per-env cond
     # lowers to a select that executes BOTH paths for every env — one
@@ -453,8 +424,8 @@ def _flocking_sums_sparse_impl(
     return out[0] if squeeze else out
 
 
-def _make_sparse_vmappable(k_max, interpret, impl, channels):
-    kw = dict(k_max=k_max, interpret=interpret, impl=impl, channels=channels)
+def _make_sparse_vmappable(k_max, channels):
+    kw = dict(k_max=k_max, channels=channels)
 
     @jax.custom_batching.custom_vmap
     def f(x, scal):
@@ -484,23 +455,19 @@ def _make_sparse_vmappable(k_max, interpret, impl, channels):
 _SPARSE_VMAPPABLE_CACHE = {}
 
 
-def _sparse_vmappable_for(k_max, interpret, impl, channels):
-    key = (k_max, interpret, impl, channels)
+def _sparse_vmappable_for(k_max, channels):
+    key = (k_max, channels)
     if key not in _SPARSE_VMAPPABLE_CACHE:
         _SPARSE_VMAPPABLE_CACHE[key] = _make_sparse_vmappable(*key)
     return _SPARSE_VMAPPABLE_CACHE[key]
 
 
-@functools.partial(
-    jax.jit, static_argnames=("k_max", "interpret", "impl", "channels")
-)
+@functools.partial(jax.jit, static_argnames=("k_max", "channels"))
 def flocking_sums_sparse(
     x: jax.Array,
     comm_radius,
     comm_radius2,
     k_max: int = 16,
-    interpret: bool = False,
-    impl: str = "auto",
     channels: str = "core",
 ):
     """Block-sparse :func:`ops.pallas_flocking.flocking_sums` (core channels).
@@ -508,8 +475,7 @@ def flocking_sums_sparse(
     [N, 4] or [B, N, 4] input, N a multiple of 128; returns the same
     [.., N, 16] channel sums as the dense kernel (adjacency-masked sums are
     EXACT — bbox pruning is conservative; float summation order differs).
-    O(N * k_max * 128) pairs instead of O(N^2): measured ~15x the dense
-    kernel at N=65536 on one v5e chip (6.4 vs ~95 ms per fused pass).
+    O(N * k_max * 128) pairs instead of O(N^2).
     Overflowing the candidate capacity (pathologically clustered swarms)
     falls back to the dense kernel for the whole batch via a REAL
     ``lax.cond`` branch — never wrong, only slower; a ``custom_vmap`` rule
@@ -517,7 +483,7 @@ def flocking_sums_sparse(
     would select-execute both passes).
     """
     scal = jnp.asarray([comm_radius, comm_radius2], jnp.result_type(x.dtype))
-    return _sparse_vmappable_for(k_max, interpret, impl, channels)(x, scal)
+    return _sparse_vmappable_for(k_max, channels)(x, scal)
 
 
 # =============================================================================
@@ -557,8 +523,6 @@ def _flocking_sums_sparse_verlet_impl(
     comm_radius,
     comm_radius2,
     skin,
-    interpret: bool = False,
-    impl: str = "auto",
     channels: str = "core",
 ):
     """Natively batched Verlet pass: [B, N, 4] (or [N, 4]) positions plus a
@@ -596,17 +560,14 @@ def _flocking_sums_sparse_verlet_impl(
         None,
     )
 
-    impl = _resolve_impl(impl, interpret)
-
     def sparse_path(vb_):
         xs = jnp.take_along_axis(xb, vb_.perm[..., None], axis=1)
         return _sparse_path_batched(
-            xs, vb_.perm, vb_.table, comm_radius, comm_radius2, impl,
-            interpret, expert,
+            xs, vb_.perm, vb_.table, comm_radius, comm_radius2, expert
         )
 
     def dense_path(vb_):
-        return _dense_path_batched(xb, comm_radius, comm_radius2, interpret, expert)
+        return _dense_path_batched(xb, comm_radius, comm_radius2, expert)
 
     out = jax.lax.cond(jnp.any(vb.overflow), dense_path, sparse_path, vb)
     if squeeze:
@@ -614,8 +575,8 @@ def _flocking_sums_sparse_verlet_impl(
     return out, vb
 
 
-def _make_verlet_vmappable(interpret, impl, channels):
-    kw = dict(interpret=interpret, impl=impl, channels=channels)
+def _make_verlet_vmappable(channels):
+    kw = dict(channels=channels)
 
     @jax.custom_batching.custom_vmap
     def f(x, vstate, scal):
@@ -627,9 +588,8 @@ def _make_verlet_vmappable(interpret, impl, channels):
     def rule(axis_size, in_batched, x, vstate, scal):
         # route vmap to the NATIVE batch handling (same rationale as
         # _make_sparse_vmappable: keep the rebuild/overflow conds real
-        # scalar branches and the Pallas pass one program for the batch —
-        # vmapping the plain form select-executes the dense O(N^2) pass
-        # AND a full re-sort every call, per lane)
+        # scalar branches — vmapping the plain form select-executes the
+        # dense O(N^2) pass AND a full re-sort every call, per lane)
         x_b, vs_b, scal_b = in_batched
         assert not scal_b, "vmap over radii/skin unsupported; close over them"
         assert all(l == x_b for l in jax.tree.leaves(vs_b)), (
@@ -659,28 +619,25 @@ def _make_verlet_vmappable(interpret, impl, channels):
 _VERLET_VMAPPABLE_CACHE = {}
 
 
-def _verlet_vmappable_for(interpret, impl, channels):
-    key = (interpret, impl, channels)
-    if key not in _VERLET_VMAPPABLE_CACHE:
-        _VERLET_VMAPPABLE_CACHE[key] = _make_verlet_vmappable(*key)
-    return _VERLET_VMAPPABLE_CACHE[key]
+def _verlet_vmappable_for(channels):
+    if channels not in _VERLET_VMAPPABLE_CACHE:
+        _VERLET_VMAPPABLE_CACHE[channels] = _make_verlet_vmappable(channels)
+    return _VERLET_VMAPPABLE_CACHE[channels]
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "impl", "channels"))
+@functools.partial(jax.jit, static_argnames=("channels",))
 def flocking_sums_sparse_verlet(
     x: jax.Array,
     vstate: VerletState,
     comm_radius,
     comm_radius2,
     skin,
-    interpret: bool = False,
-    impl: str = "auto",
     channels: str = "core",
 ):
     """:func:`flocking_sums_sparse` with a cross-call Verlet table.
 
     Returns ``(sums [.., N, 16], vstate')``.  The Hilbert sort + candidate
-    table (measured 26% of the sparse pass at N=65k) is REBUILT only when
+    table is REBUILT only when
     some agent has moved more than ``skin/2`` from its anchor — a real
     ``lax.cond`` branch on a scalar predicate, so reuse steps skip the
     sort entirely.  Exactness: the skin-expanded table is a superset of
@@ -695,13 +652,12 @@ def flocking_sums_sparse_verlet(
     a matching batched state.  A ``custom_vmap`` rule routes ``jax.vmap``
     (e.g. ``parallel.batch_expert_rollout``) into the native batched form,
     where rebuild/overflow stay batch-wide scalar branches (one drifted env
-    rebuilds all — conservative, never wrong) and the Pallas pass compiles
-    ONCE for the batch.
+    rebuilds all — conservative, never wrong).
     """
     scal = jnp.asarray(
         [comm_radius, comm_radius2, skin], jnp.result_type(x.dtype)
     )
-    return _verlet_vmappable_for(interpret, impl, channels)(x, vstate, scal)
+    return _verlet_vmappable_for(channels)(x, vstate, scal)
 
 
 # =============================================================================
@@ -709,82 +665,10 @@ def flocking_sums_sparse_verlet(
 # =============================================================================
 
 
-def _sparse_adj_kernel(scal, table, valid, px_c, py_c, px_r, py_r, h_ref,
-                       out_ref, deg_ref, *, bi):
-    # grid = (B, n_b, k_max); H column block DMA'd via the table index map
-    b = pl.program_id(0)
-    i = pl.program_id(1)
-    k = pl.program_id(2)
-    cr2 = scal[0]
-
-    @pl.when(k == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-        deg_ref[:] = jnp.zeros_like(deg_ref)
-
-    @pl.when(valid[b, i, k] != 0)
-    def _():
-        j = table[b, i, k]
-        row_ids = i * bi + jax.lax.broadcasted_iota(jnp.int32, (bi, bi), 0)
-        col_ids = j * bi + jax.lax.broadcasted_iota(jnp.int32, (bi, bi), 1)
-        dx = px_c[0] - px_r[0]
-        dy = py_c[0] - py_r[0]
-        r2 = dx * dx + dy * dy
-        adj = ((r2 < cr2) & (row_ids != col_ids)).astype(jnp.float32)
-        part = jnp.dot(adj, h_ref[0].astype(jnp.float32),
-                       preferred_element_type=jnp.float32)
-        out_ref[:] = out_ref[:] + part[None]
-        deg_ref[:] = deg_ref[:] + jnp.sum(adj, axis=1, keepdims=True)[None]
-
-
-def _sparse_adj_pallas(xs, hs, table, comm_radius2, interpret=False):
-    """Table-driven (A @ H, degree) over sorted operands; see
-    :func:`_sparse_sums_pallas` for the scheme."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    b, n, _ = xs.shape
-    n_b = n // BLOCK
-    k_max = table.shape[-1]
-    f = hs.shape[-1]
-
-    valid = (table >= 0).astype(jnp.int32)
-    tbl = jnp.maximum(table, 0)
-    scal = jnp.asarray([comm_radius2], jnp.float32)
-    px = xs[:, :, 0].reshape(b, n, 1)
-    py = xs[:, :, 1].reshape(b, n, 1)
-    qx = xs[:, :, 0].reshape(b, 1, n)
-    qy = xs[:, :, 1].reshape(b, 1, n)
-
-    col_spec = pl.BlockSpec((1, BLOCK, 1), lambda bb, i, k, s_, t_, v_: (bb, i, 0))
-    row_spec = pl.BlockSpec(
-        (1, 1, BLOCK), lambda bb, i, k, s_, t_, v_: (bb, 0, t_[bb, i, k])
-    )
-    h_spec = pl.BlockSpec(
-        (1, BLOCK, f), lambda bb, i, k, s_, t_, v_: (bb, t_[bb, i, k], 0)
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(b, n_b, k_max),
-        in_specs=[col_spec, col_spec, row_spec, row_spec, h_spec],
-        out_specs=(
-            pl.BlockSpec((1, BLOCK, f), lambda bb, i, k, s_, t_, v_: (bb, i, 0)),
-            pl.BlockSpec((1, BLOCK, 1), lambda bb, i, k, s_, t_, v_: (bb, i, 0)),
-        ),
-    )
-    out, deg = pl.pallas_call(
-        functools.partial(_sparse_adj_kernel, bi=BLOCK),
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((b, n, f), jnp.float32),
-            jax.ShapeDtypeStruct((b, n, 1), jnp.float32),
-        ),
-        interpret=interpret,
-    )(scal, tbl, valid, px, py, qx, qy, hs)
-    return out.astype(hs.dtype), deg[..., 0]
-
-
 def _sparse_adj_xla(xs, hs, table, comm_radius2):
-    """XLA formulation of the sparse (A @ H, degree) pass (CPU path)."""
+    """Table-driven (A @ H, degree) over sorted operands: vmap over row
+    blocks, scan over the candidate slots with whole contiguous column-block
+    loads (``dynamic_slice``)."""
     b, n, _ = xs.shape
     n_b = n // BLOCK
 
@@ -833,8 +717,6 @@ def _sparse_adj_raw_impl(
     h: jax.Array,
     scal: jax.Array,
     k_max: int,
-    interpret: bool,
-    impl: str,
 ):
     """Un-normalized sparse aggregation: ``(A(x) @ H, degree)``.
 
@@ -842,10 +724,6 @@ def _sparse_adj_raw_impl(
     (:func:`adjacency_matmul_sparse`'s custom VJP), so this function only
     needs to be vmappable, not differentiable.
     """
-    if impl == "auto":
-        # interpret forces the (interpreted) pallas path; real CPU takes XLA
-        impl = "pallas" if (mosaic_supported() or interpret) else "xla"
-
     squeeze = x.ndim == 2
     xb = x[None] if squeeze else x
     hb = h[None] if squeeze else h
@@ -866,12 +744,7 @@ def _sparse_adj_raw_impl(
         take = jax.vmap(lambda v, p: v[p])
         xs = take(xb, perm_)
         hs = take(hb, perm_)
-        if impl == "pallas":
-            out_s, deg_s = _sparse_adj_pallas(
-                xs, hs, table_, comm_radius2, interpret=interpret
-            )
-        else:
-            out_s, deg_s = _sparse_adj_xla(xs, hs, table_, comm_radius2)
+        out_s, deg_s = _sparse_adj_xla(xs, hs, table_, comm_radius2)
         inv = jax.vmap(
             lambda p: jnp.zeros((n,), jnp.int32).at[p].set(jnp.arange(n, dtype=jnp.int32))
         )(perm_)
@@ -881,22 +754,12 @@ def _sparse_adj_raw_impl(
 
     def dense_path(operands):
         # pathological clustering: whole-batch dense fallback (see
-        # flocking_sums_sparse); raw (A@H, degree) via the dense tile impl
-        from gym_flock_tpu.ops.pallas_flocking import (
-            _adj_block_vmappable_for,
-            _adj_matmul_impl,
-            _zero_offs,
-        )
+        # flocking_sums_sparse); raw (A@H, degree) via the dense tile
+        from gym_flock_tpu.ops.pallas_flocking import _adj_tile
 
-        if interpret or not mosaic_supported():
-            out_d, deg_d = _adj_matmul_impl(
-                xb, xb, hb, _zero_offs(), comm_radius2, mean_pool=False,
-                interpret=True, return_deg=True,
-            )
-        else:
-            out_d, deg_d = _adj_block_vmappable_for(None)(
-                xb, xb, hb, _zero_offs(), scal
-            )
+        out_d, deg_d = _adj_tile(
+            xb, xb, hb, jnp.zeros((2,), jnp.int32), comm_radius2
+        )
         return out_d.astype(hb.dtype), deg_d.astype(jnp.float32)
 
     out, deg = jax.lax.cond(
@@ -907,10 +770,10 @@ def _sparse_adj_raw_impl(
     return out, deg
 
 
-def _make_sparse_adj_raw_vmappable(k_max, interpret, impl):
+def _make_sparse_adj_raw_vmappable(k_max):
     @jax.custom_batching.custom_vmap
     def f(x, h, scal):
-        return _sparse_adj_raw_impl(x, h, scal, k_max, interpret, impl)
+        return _sparse_adj_raw_impl(x, h, scal, k_max)
 
     @f.def_vmap
     def rule(axis_size, in_batched, x, h, scal):
@@ -922,7 +785,7 @@ def _make_sparse_adj_raw_vmappable(k_max, interpret, impl):
         x_b, h_b, scal_b = in_batched
         assert not scal_b, "vmap over radii unsupported; close over them instead"
         if not (x_b or h_b):
-            out = _sparse_adj_raw_impl(x, h, scal, k_max, interpret, impl)
+            out = _sparse_adj_raw_impl(x, h, scal, k_max)
             return out, (False, False)
         # broadcast a shared (unbatched) operand, like the dense rule
         if not x_b:
@@ -934,13 +797,13 @@ def _make_sparse_adj_raw_vmappable(k_max, interpret, impl):
             out, deg = _sparse_adj_raw_impl(
                 x.reshape((-1,) + x.shape[-2:]),
                 h.reshape((-1,) + h.shape[-2:]),
-                scal, k_max, interpret, impl,
+                scal, k_max,
             )
             return (
                 (out.reshape(lead + out.shape[1:]), deg.reshape(lead + deg.shape[1:])),
                 (True, True),
             )
-        out, deg = _sparse_adj_raw_impl(x, h, scal, k_max, interpret, impl)
+        out, deg = _sparse_adj_raw_impl(x, h, scal, k_max)
         batched = x.ndim == 3
         return (out, deg), (batched, batched)
 
@@ -950,17 +813,16 @@ def _make_sparse_adj_raw_vmappable(k_max, interpret, impl):
 _SPARSE_ADJ_RAW_CACHE = {}
 
 
-def _sparse_adj_raw_for(k_max, interpret, impl):
-    key = (k_max, interpret, impl)
-    if key not in _SPARSE_ADJ_RAW_CACHE:
-        _SPARSE_ADJ_RAW_CACHE[key] = _make_sparse_adj_raw_vmappable(*key)
-    return _SPARSE_ADJ_RAW_CACHE[key]
+def _sparse_adj_raw_for(k_max):
+    if k_max not in _SPARSE_ADJ_RAW_CACHE:
+        _SPARSE_ADJ_RAW_CACHE[k_max] = _make_sparse_adj_raw_vmappable(k_max)
+    return _SPARSE_ADJ_RAW_CACHE[k_max]
 
 
-def _make_diff_sparse_adj(mean_pool, k_max, interpret, impl):
+def _make_diff_sparse_adj(mean_pool, k_max):
     """Differentiable sparse (A(x) @ H), custom VJP OUTSIDE the custom_vmap
     (grad cannot go through a custom_vmap-wrapped function; same layering
-    as ops.pallas_flocking._make_diff_adj_matmul).
+    as ops.pallas_flocking._adj_block).
 
     The radius adjacency is SYMMETRIC and the bbox candidate relation is
     symmetric (j in table[i] iff i in table[j]), so the backward pass is
@@ -968,7 +830,7 @@ def _make_diff_sparse_adj(mean_pool, k_max, interpret, impl):
     (mean_pool: dH = A (d_out / deg); deg is H-independent).  Positions
     are a step function of x (zero cotangent a.e.).
     """
-    kernel = _sparse_adj_raw_for(k_max, interpret, impl)
+    kernel = _sparse_adj_raw_for(k_max)
 
     @jax.custom_vjp
     def f(x, h, scal):
@@ -1001,17 +863,13 @@ def _make_diff_sparse_adj(mean_pool, k_max, interpret, impl):
 _DIFF_SPARSE_ADJ_CACHE = {}
 
 
-@functools.partial(
-    jax.jit, static_argnames=("mean_pool", "k_max", "interpret", "impl")
-)
+@functools.partial(jax.jit, static_argnames=("mean_pool", "k_max"))
 def adjacency_matmul_sparse(
     x: jax.Array,
     h: jax.Array,
     comm_radius2,
     mean_pool: bool = True,
     k_max: int = 16,
-    interpret: bool = False,
-    impl: str = "auto",
 ):
     """Block-sparse ``ops.adjacency_matmul``: (A(x) @ H) over the cell-list
     block pairs only — O(N * neighbors) GNN aggregation.
@@ -1024,7 +882,7 @@ def adjacency_matmul_sparse(
     via a ``custom_vmap`` rule routing to the native batch form.
     [N, *] or [B, N, *] inputs.
     """
-    key = (mean_pool, k_max, interpret, impl)
+    key = (mean_pool, k_max)
     if key not in _DIFF_SPARSE_ADJ_CACHE:
         _DIFF_SPARSE_ADJ_CACHE[key] = _make_diff_sparse_adj(*key)
     scal = jnp.asarray([comm_radius2], jnp.result_type(x.dtype))
@@ -1038,7 +896,6 @@ def khop_aggregate_sparse(
     k_hops: int,
     mean_pool: bool = True,
     k_max: int = 16,
-    interpret: bool = False,
 ):
     """[X, AX, A^2 X, ...] via the block-sparse aggregation — the
     O(N * neighbors) input pipeline for :class:`models.LargeAggregationGNN`
@@ -1047,8 +904,7 @@ def khop_aggregate_sparse(
     z = features
     for _ in range(k_hops - 1):
         z = adjacency_matmul_sparse(
-            x, z, comm_radius2, mean_pool=mean_pool, k_max=k_max,
-            interpret=interpret,
+            x, z, comm_radius2, mean_pool=mean_pool, k_max=k_max
         )
         zs.append(z)
     return jnp.concatenate(zs, axis=-1)

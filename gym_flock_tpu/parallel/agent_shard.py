@@ -13,8 +13,7 @@ that matrix somewhere past N ~ 100k (a dense f32 [N, N] at N=131072 is
 - ``mode="ring"``: column blocks of the swarm stream around a ``ppermute``
   ring; each of the P steps computes an [m, m] tile and accumulates the
   per-row sums.  Peak footprint O(m^2) — the ring-attention schedule applied
-  to pairwise interactions (SURVEY.md §5.7), and the layout whose collective
-  traffic rides neighbor ICI links on a real pod slice.
+  to pairwise interactions (SURVEY.md §5.7).
 
 Both modes compose with the env-batch axis: the canonical mesh is
 ``make_flock_mesh(dp, ap)`` — ``Mesh(devices.reshape(dp, ap), ("dp", "ap"))``
@@ -53,12 +52,8 @@ __all__ = [
 
 
 def make_flock_mesh(dp: int, ap: int, devices=None) -> jax.sharding.Mesh:
-    """2-D mesh: env-batch axis ``dp`` x agent axis ``ap``.
-
-    On a real slice put ``ap`` on the mesh's minor (fastest-wrap) dimension
-    so the ring permutation of :func:`flocking_sums_sharded` maps to
-    nearest-neighbor ICI hops.
-    """
+    """2-D mesh: env-batch axis ``dp`` x agent axis ``ap`` (the first
+    ``dp * ap`` devices, row-major)."""
     if devices is None:
         devices = jax.devices()
     devices = np.asarray(devices)
@@ -67,62 +62,10 @@ def make_flock_mesh(dp: int, ap: int, devices=None) -> jax.sharding.Mesh:
     return jax.sharding.Mesh(devices[: dp * ap].reshape(dp, ap), ("dp", "ap"))
 
 
-def _block_sums(
-    xr: jax.Array,
-    xc: jax.Array,
-    row_ids: jax.Array,
-    col_ids: jax.Array,
-    comm_radius,
-    comm_radius2,
-) -> jax.Array:
-    """Pairwise reductions of row block ``xr`` [m,4] against column block
-    ``xc`` [k,4]; returns [m, 12] partial channel sums.
-
-    ``row_ids`` / ``col_ids`` are *global* agent indices — the diagonal
-    (self-pair) mask of the dense kernel (envs.flocking._pairwise_channels)
-    becomes a global-id equality test across blocks.  Channel layout matches
-    ``ops.pallas_flocking`` (module docstring there): 0-5 features, 6/7
-    gradient sums, 8 degree, 9 min-r2, 10/11 adjacency-masked gradient sums.
-    """
-    dx = xr[:, 0, None] - xc[None, :, 0]
-    dy = xr[:, 1, None] - xc[None, :, 1]
-    dvx = xr[:, 2, None] - xc[None, :, 2]
-    dvy = xr[:, 3, None] - xc[None, :, 3]
-    r2 = dx * dx + dy * dy
-    r2 = jnp.where(row_ids[:, None] == col_ids[None, :], jnp.inf, r2)
-    adj = (r2 < comm_radius2).astype(dx.dtype)
-    inv = 1.0 / r2
-    inv2 = inv * inv
-    # Turner gradient factor; cutoff keeps the reference's r2-vs-radius quirk
-    # (flocking_relative.py:225) exactly like the dense and Pallas kernels
-    gfac = jnp.where(r2 > comm_radius, 0.0, 2.0 * inv * (1.0 - inv))
-    return jnp.stack(
-        (
-            jnp.sum(dvx * adj, axis=1),
-            jnp.sum(dx * inv2 * adj, axis=1),
-            jnp.sum(dx * inv * adj, axis=1),
-            jnp.sum(dvy * adj, axis=1),
-            jnp.sum(dy * inv2 * adj, axis=1),
-            jnp.sum(dy * inv * adj, axis=1),
-            jnp.sum(dx * gfac, axis=1),
-            jnp.sum(dy * gfac, axis=1),
-            jnp.sum(adj, axis=1),
-            jnp.min(r2, axis=1),
-            jnp.sum(dx * gfac * adj, axis=1),
-            jnp.sum(dy * gfac * adj, axis=1),
-        ),
-        axis=1,
-    )
-
-
 def _ring_perm(p: int):
     # device i receives the block held by device (i + 1) % p each step,
     # i.e. source j sends to destination (j - 1) % p
     return [(j, (j - 1) % p) for j in range(p)]
-
-
-def _local_ids(m: int, axis_name: str) -> jax.Array:
-    return jax.lax.axis_index(axis_name) * m + jnp.arange(m)
 
 
 def flocking_sums_sharded(
@@ -131,8 +74,6 @@ def flocking_sums_sharded(
     comm_radius2,
     axis_name: str = "ap",
     mode: str = "ring",
-    use_pallas: bool = False,
-    interpret: bool = False,
     channels: str = "full",
 ) -> jax.Array:
     """All per-agent pairwise reductions, agent axis sharded over ``axis_name``.
@@ -140,43 +81,25 @@ def flocking_sums_sharded(
     ``x_local``: this shard's [m, 4] row block of the global [N, 4] swarm
     (N = m * axis size).  Returns this shard's [m, 12] channel sums — the
     sharded counterpart of ``ops.flocking_sums`` (same channel layout).
-    Call inside ``shard_map``.
-
-    ``use_pallas`` routes each tile through the VMEM-resident
-    ``ops.flocking_sums_block`` kernel instead of XLA — the choice for large
-    per-shard blocks, where the XLA path materializes O(m * k) channel
-    temporaries in HBM (``interpret`` is for CPU testing of that path).
-    ``channels="core"`` skips the min-r2/masked-gradient channels in the
-    Pallas path (they read as zeros; plain-add accumulate, measurably
-    faster) — callers that only need channels 0..8 pass it; the XLA path
-    always computes everything and relies on DCE of unused sums.
+    Call inside ``shard_map``.  Each tile is ``ops.flocking_sums_block``
+    with global-id offsets; ``channels="core"`` skips the min-r2 and
+    masked-gradient channels (9..11 read as zeros).
     """
+    from gym_flock_tpu.ops.pallas_flocking import flocking_sums_block
+
     m = x_local.shape[0]
     p = jax.lax.axis_size(axis_name)
     me = jax.lax.axis_index(axis_name)
-    row_ids = _local_ids(m, axis_name)
 
-    if use_pallas:
-        from gym_flock_tpu.ops.pallas_flocking import flocking_sums_block
-
-        # the kernel output varies over every axis the input does (e.g. the
-        # dp axis too on a 2-D mesh), not just the agent axis
-        vma = getattr(jax.typeof(x_local), "vma", None) or (axis_name,)
-
-        def tile_sums(xc, col_off, col_ids):
-            return flocking_sums_block(
-                x_local, xc, me * m, col_off, comm_radius, comm_radius2,
-                interpret=interpret, vma=vma, channels=channels,
-            )[:, :12]
-
-    else:
-
-        def tile_sums(xc, col_off, col_ids):
-            return _block_sums(x_local, xc, row_ids, col_ids, comm_radius, comm_radius2)
+    def tile_sums(xc, col_off):
+        return flocking_sums_block(
+            x_local, xc, me * m, col_off, comm_radius, comm_radius2,
+            channels=channels,
+        )[:, :12]
 
     if mode == "allgather":
         x_all = jax.lax.all_gather(x_local, axis_name, tiled=True)
-        return tile_sums(x_all, 0, jnp.arange(m * p))
+        return tile_sums(x_all, 0)
 
     if mode != "ring":
         raise ValueError(f"unknown mode {mode!r}")
@@ -186,12 +109,12 @@ def flocking_sums_sharded(
     # own block first, then p-1 permute-and-compute steps (the scan body
     # permutes BEFORE computing so the final iteration's result is used —
     # p-1 collectives total, not p)
-    part0 = tile_sums(x_local, me * m, row_ids)
+    part0 = tile_sums(x_local, me * m)
 
     def body(carry, s):
         block = jax.lax.ppermute(carry, axis_name, perm)
         src = jnp.mod(me + s, p)
-        part = tile_sums(block, src * m, src * m + jnp.arange(m))
+        part = tile_sums(block, src * m)
         return block, part
 
     _, parts = jax.lax.scan(body, x_local, jnp.arange(1, p))  # [p-1, m, 12]
@@ -207,16 +130,13 @@ def flocking_features_sharded(
     comm_radius2,
     axis_name: str = "ap",
     mode: str = "ring",
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
     """Sharded ``compute_helpers`` (reference flocking_relative.py:111-134):
     returns ``(state_values [m, 6], degree [m])`` for this shard's agents.
     Like ``ops.flocking_features_large``, the dense [N, N] network is never
     materialized; aggregate through :func:`adjacency_matmul_sharded`."""
     s = flocking_sums_sharded(
-        x_local, comm_radius, comm_radius2, axis_name, mode, use_pallas,
-        interpret, channels="core",
+        x_local, comm_radius, comm_radius2, axis_name, mode, channels="core"
     )
     return s[:, 0:6], s[:, 8]
 
@@ -227,8 +147,6 @@ def turner_controller_sharded(
     axis_name: str = "ap",
     mode: str = "ring",
     sums: Optional[jax.Array] = None,
-    use_pallas: bool = False,
-    interpret: bool = False,
     centralized: Optional[bool] = None,
 ) -> jax.Array:
     """Turner expert (reference flocking_relative.py:194-212), agent axis
@@ -247,7 +165,6 @@ def turner_controller_sharded(
     if sums is None:
         sums = flocking_sums_sharded(
             x_local, params.comm_radius, params.comm_radius2, axis_name, mode,
-            use_pallas, interpret,
             channels="core" if centralized else "full",
         )
     if centralized:
@@ -269,51 +186,34 @@ def adjacency_matmul_sharded(
     axis_name: str = "ap",
     mode: str = "ring",
     mean_pool: bool = True,
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> jax.Array:
     """(A(x) @ H) with both operands sharded along the agent axis.
 
     The GNN aggregation primitive (reference flocking_relative.py:117-122 /
     old/flocking_multi.py:180-266) at swarm sizes where neither A nor the
-    full H fits one device: each ring step builds an [m, m] adjacency tile
-    from positions and contracts it against the visiting [m, F] feature
-    block on the MXU.  ``mean_pool`` divides by degree exactly like
-    ``ops.mean_pool_normalize`` (zero-degree rows pass through unscaled).
-    ``use_pallas`` routes each tile through ``ops.adjacency_matmul_block``
-    (adjacency built in VMEM, never in HBM).
+    full H fits one device: each ring step contracts this shard's rows
+    against the visiting [m, F] feature block through
+    ``ops.adjacency_matmul_block`` (on the GPU the [m, m] adjacency tile is
+    built in registers, never in device memory).  ``mean_pool`` divides by
+    degree exactly like ``ops.mean_pool_normalize`` (zero-degree rows pass
+    through unscaled).
     """
+    from gym_flock_tpu.ops.pallas_flocking import adjacency_matmul_block
+
     m = x_local.shape[0]
     p = jax.lax.axis_size(axis_name)
     me = jax.lax.axis_index(axis_name)
-    row_ids = _local_ids(m, axis_name)
 
-    if use_pallas:
-        from gym_flock_tpu.ops.pallas_flocking import adjacency_matmul_block
-
-        vma = getattr(jax.typeof(x_local), "vma", None) or (axis_name,)
-
-        def tile_mm(xc, hb, col_off, col_ids):
-            out, deg = adjacency_matmul_block(
-                x_local, xc, hb, me * m, col_off, comm_radius2,
-                interpret=interpret, vma=vma,
-            )
-            return out.astype(h_local.dtype), deg.astype(h_local.dtype)
-
-    else:
-
-        def tile_mm(xc, hb, col_off, col_ids):
-            dx = x_local[:, 0, None] - xc[None, :, 0]
-            dy = x_local[:, 1, None] - xc[None, :, 1]
-            r2 = dx * dx + dy * dy
-            adj = (r2 < comm_radius2) & (row_ids[:, None] != col_ids[None, :])
-            adj = adj.astype(h_local.dtype)
-            return adj @ hb, jnp.sum(adj, axis=1)
+    def tile_mm(xc, hb, col_off):
+        out, deg = adjacency_matmul_block(
+            x_local, xc, hb, me * m, col_off, comm_radius2
+        )
+        return out, deg.astype(h_local.dtype)
 
     if mode == "allgather":
         x_all = jax.lax.all_gather(x_local, axis_name, tiled=True)
         h_all = jax.lax.all_gather(h_local, axis_name, tiled=True)
-        out, deg = tile_mm(x_all, h_all, 0, jnp.arange(m * p))
+        out, deg = tile_mm(x_all, h_all, 0)
     elif mode == "ring":
 
         def body(carry, s):
@@ -323,10 +223,10 @@ def adjacency_matmul_sharded(
             # tuple rather than two
             xb, hb = jax.lax.ppermute((xb, hb), axis_name, _ring_perm(p))
             src = jnp.mod(me + s, p)
-            o, d = tile_mm(xb, hb, src * m, src * m + jnp.arange(m))
+            o, d = tile_mm(xb, hb, src * m)
             return (xb, hb, acc + o, deg + d), None
 
-        acc0, deg0 = tile_mm(x_local, h_local, me * m, me * m + jnp.arange(m))
+        acc0, deg0 = tile_mm(x_local, h_local, me * m)
         (_, _, out, deg), _ = jax.lax.scan(
             body, (x_local, h_local, acc0, deg0), jnp.arange(1, p)
         )
@@ -346,15 +246,13 @@ def khop_aggregate_sharded(
     axis_name: str = "ap",
     mode: str = "ring",
     mean_pool: bool = True,
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> jax.Array:
     """[X, AX, A^2 X, ...] with the agent axis sharded — the
     ``ops.khop_aggregate`` input pipeline at swarm sizes past one device.
 
-    DIFFERENTIABLE end to end: the XLA tile is plain jnp (autodiff through
-    the scan + ppermute ring), and the Pallas tile carries the
-    swapped-operand custom VJP of ``ops.adjacency_matmul_block`` — so the
+    DIFFERENTIABLE end to end: autodiff runs through the scan + ppermute
+    ring, and each tile carries the swapped-operand custom VJP of
+    ``ops.adjacency_matmul_block`` — so the
     sharded :class:`~gym_flock_tpu.models.LargeAggregationGNN` trains with
     the agent axis split over the mesh.  Call inside ``shard_map``.
     """
@@ -363,7 +261,7 @@ def khop_aggregate_sharded(
     for _ in range(k_hops - 1):
         z = adjacency_matmul_sharded(
             x_local, z, comm_radius2, axis_name=axis_name, mode=mode,
-            mean_pool=mean_pool, use_pallas=use_pallas, interpret=interpret,
+            mean_pool=mean_pool,
         )
         zs.append(z)
     return jnp.concatenate(zs, axis=-1)
@@ -374,8 +272,6 @@ def flocking_step_sharded(
     params: FlockingParams,
     axis_name: str = "ap",
     mode: str = "ring",
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """One fused expert+dynamics+observation step on a sharded swarm.
 
@@ -386,13 +282,10 @@ def flocking_step_sharded(
     reference's -sum of velocity variances (flocking_relative.py:145-147) —
     is computed from global psum'd moments and is identical on every shard.
     """
-    u_local = turner_controller_sharded(
-        x_local, params, axis_name, mode, use_pallas=use_pallas, interpret=interpret
-    )
+    u_local = turner_controller_sharded(x_local, params, axis_name, mode)
     x2 = _integrate(x_local, u_local, params.dt)
     values, _ = flocking_features_sharded(
-        x2, params.comm_radius, params.comm_radius2, axis_name, mode,
-        use_pallas, interpret,
+        x2, params.comm_radius, params.comm_radius2, axis_name, mode
     )
     n = x_local.shape[0] * jax.lax.axis_size(axis_name)
     v = x2[:, 2:4]
@@ -408,8 +301,6 @@ def flocking_reset_sharded(
     params: FlockingParams,
     axis_name: str = "ap",
     mode: str = "ring",
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> jax.Array:
     """Rejection-sampling reset with the acceptance test itself sharded.
 
@@ -451,8 +342,7 @@ def flocking_reset_sharded(
 
     def accept(x_local):
         s = flocking_sums_sharded(
-            x_local, params.comm_radius, params.comm_radius2, axis_name, mode,
-            use_pallas, interpret,
+            x_local, params.comm_radius, params.comm_radius2, axis_name, mode
         )
         min_deg = jax.lax.pmin(jnp.min(s[:, 8]), axis_name)
         min_r2 = jax.lax.pmin(jnp.min(s[:, 9]), axis_name)
@@ -483,8 +373,6 @@ def agent_sharded_rollout(
     n_steps: int,
     mesh: Optional[jax.sharding.Mesh] = None,
     mode: str = "ring",
-    use_pallas: bool = False,
-    interpret: bool = False,
 ):
     """Roll a batch of large swarms over a 2-D (env-batch x agent) mesh.
 
@@ -506,9 +394,7 @@ def agent_sharded_rollout(
 
     def local_fn(keys_local):
         def one_env(key):
-            x0 = flocking_reset_sharded(
-                key, params, ap_axis, mode, use_pallas, interpret
-            )
+            x0 = flocking_reset_sharded(key, params, ap_axis, mode)
             # cross-step fusion (same as the dense expert_rollout): the ring
             # pass at x_{t+1} produced for step t's observation carries its
             # expert channels into step t+1's controller — ONE ring schedule
@@ -516,19 +402,16 @@ def agent_sharded_rollout(
             chan = "core" if params.centralized else "full"
             s0 = flocking_sums_sharded(
                 x0, params.comm_radius, params.comm_radius2, ap_axis, mode,
-                use_pallas, interpret, channels=chan,
+                channels=chan,
             )
 
             def body(carry, _):
                 x, s = carry
-                u = turner_controller_sharded(
-                    x, params, ap_axis, mode, sums=s,
-                    use_pallas=use_pallas, interpret=interpret,
-                )
+                u = turner_controller_sharded(x, params, ap_axis, mode, sums=s)
                 x2 = _integrate(x, u, params.dt)
                 s2 = flocking_sums_sharded(
                     x2, params.comm_radius, params.comm_radius2, ap_axis,
-                    mode, use_pallas, interpret, channels=chan,
+                    mode, channels=chan,
                 )
                 n = x.shape[0] * jax.lax.axis_size(ap_axis)
                 v = x2[:, 2:4]

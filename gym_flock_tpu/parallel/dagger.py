@@ -7,7 +7,7 @@ and train on the aggregate.  Plain BC only sees expert states; DAGGER sees
 the learner's own state distribution, which is what makes the distilled
 policy stable in closed loop.
 
-TPU-native formulation — everything is one jitted program per iteration:
+On-device formulation — everything is one jitted program per iteration:
 
 * the replay buffer stores raw env states ``x`` (+ expert labels), not
   observations: features/adjacency are recomputed inside the loss, which is

@@ -1,21 +1,21 @@
-"""Multi-host pod scale-out: initialization, meshes, and per-host RNG.
+"""Multi-host scale-out: initialization, meshes, and per-host RNG.
 
 The reference is a single NumPy process with no distribution story
 (SURVEY.md §2.3).  Here scale-out is pure JAX plumbing: because rollouts and
 the DP train step are written against a ``Mesh`` (``rollout.py``,
-``train.py``), running on a multi-host pod slice requires only
+``train.py``), running on several hosts requires only
 
     from gym_flock_tpu.parallel.distributed import initialize, global_env_mesh
-    initialize()                       # jax.distributed under the hood
-    mesh = global_env_mesh("env")      # all chips on all hosts
+    initialize("host0:1234", num_processes=2, process_id=0)
+    mesh = global_env_mesh("env")      # every device on every host
 
 and the same ``sharded_rollout`` / ``make_sharded_train_step`` calls.  Data
-layout rules that keep collectives on ICI:
+layout rules that keep collectives rare:
 
-* the env-batch axis shards over *all* chips (envs are independent, so the
+* the env-batch axis shards over *all* devices (envs are independent, so the
   per-step program has zero cross-device communication);
 * model params/optimizer state are replicated; gradient ``pmean`` is the one
-  all-reduce per step and rides ICI within a slice;
+  all-reduce per step;
 * host-side artifacts (graph banks, VRP labels) are broadcast once — banks
   are identical on every host by construction (same seed), so no transfer is
   needed; per-host RNG streams come from :func:`host_fold` folding the
@@ -31,34 +31,45 @@ import numpy as np
 __all__ = ["initialize", "global_env_mesh", "host_fold", "local_shard_size"]
 
 
+# environment variables that announce a multi-process launch to
+# ``jax.distributed.initialize`` (its own, SLURM's and Open MPI's)
+_CLUSTER_VARS = (
+    "JAX_COORDINATOR_ADDRESS",
+    "JAX_NUM_PROCESSES",
+    "SLURM_JOB_ID",
+    "OMPI_COMM_WORLD_SIZE",
+)
+
+
 def initialize(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """``jax.distributed.initialize`` with env-var autodetection.
+    """``jax.distributed.initialize``, a no-op for a single process.
 
-    No-op on a single host (so the same program runs everywhere).  On TPU
-    pods the arguments are autodetected from the metadata server; on other
-    clusters pass them explicitly.
+    With no arguments and none of the cluster variables above set, there is
+    nothing to join and this returns (so the same program runs everywhere).
+    Otherwise the arguments, or the cluster's variables, go to
+    ``jax.distributed.initialize`` and any failure propagates: a launch
+    that meant to be multi-process must not quietly run single-process.
     """
-    if num_processes is None and coordinator_address is None:
-        # single-process or TPU-autodetected environment
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            # already initialized, or single-host without cluster env: fine
-            pass
-    else:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
+    import os
+
+    explicit = (coordinator_address, num_processes, process_id)
+    if all(a is None for a in explicit) and not any(
+        os.environ.get(v) for v in _CLUSTER_VARS
+    ):
+        return
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
 
 
 def global_env_mesh(axis_name: str = "env") -> jax.sharding.Mesh:
-    """1-D mesh over every chip of every host (env-batch / dp axis)."""
+    """1-D mesh over every device of every host (env-batch / dp axis)."""
     return jax.sharding.Mesh(np.asarray(jax.devices()), (axis_name,))
 
 

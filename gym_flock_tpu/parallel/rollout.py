@@ -196,8 +196,7 @@ def sharded_rollout(
 
     Each device rolls ``n_envs // n_devices`` instances; the per-step work
     never crosses devices (envs are independent), and the returned summary
-    stats are combined with ``psum``-family collectives at the end — the
-    pattern that rides ICI on a pod slice.
+    stats are combined with ``psum``-family collectives at the end.
 
     Returns ``(traj, stats)`` where stats = {'mean_reward', 'done_rate'}
     are global (already all-reduced) scalars.

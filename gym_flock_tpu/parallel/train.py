@@ -1,16 +1,15 @@
 """Imitation-learning trainer: expert data generation + sharded train step.
 
 This is the workload the reference exists for (README.md:25-30: env experts
-generate imitation data for GNN policies trained in an external repo).  The
-TPU-native formulation fuses the whole loop on device:
+generate imitation data for GNN policies trained in an external repo).  Here
+the whole loop is fused on device:
 
     rollout (vmapped envs, expert policy) -> (obs, expert actions)
     -> policy gradient step (MSE to expert) -> repeat
 
 and shards it over a device mesh: the env-batch/data axis is partitioned
 across devices (dp), model parameters are replicated, and gradients are
-combined with ``psum`` — collectives ride ICI on a real pod slice
-(SURVEY.md §5.8).  ``jax.distributed.initialize`` extends the same program
+combined with ``psum`` (SURVEY.md §5.8).  ``jax.distributed.initialize`` extends the same program
 to multi-host; nothing in the code changes because the mesh abstracts hosts.
 """
 from __future__ import annotations
@@ -241,7 +240,8 @@ def collect_large_flocking_batch(env, params, key: jax.Array, n_envs: int, n_ste
 class LargeFlockingImitationTrainer:
     """Behavior cloning at swarm sizes where the dense adjacency does not
     fit: :class:`LargeAggregationGNN` over (x, features) batches, every
-    pairwise product blockwise (Pallas) with the custom-VJP backward.
+    pairwise product tile by tile (``ops.adjacency_matmul``) with the
+    custom-VJP backward.
     Mirrors :class:`FlockingImitationTrainer` otherwise.
     """
 
@@ -251,14 +251,13 @@ class LargeFlockingImitationTrainer:
         env_params,
         model=None,
         learning_rate: float = 1e-3,
-        interpret: bool = False,
     ):
         from gym_flock_tpu.models.gnn import LargeAggregationGNN
 
         self.env = env
         self.env_params = env_params
         self.model = model or LargeAggregationGNN(
-            comm_radius2=float(env_params.comm_radius2), interpret=interpret
+            comm_radius2=float(env_params.comm_radius2)
         )
         self.tx = optax.adam(learning_rate)
 
@@ -298,16 +297,13 @@ class LargeFlockingImitationTrainer:
         self,
         mesh=None,
         axis_name: str = "ap",
-        use_pallas: bool = False,
-        interpret: bool = False,
     ):
         """Train step with the AGENT axis sharded over the mesh (model
         parallelism for the swarm dimension, SURVEY §5.7) — for N past one
         device's memory.  Params replicate; (x, features, actions) batches
         shard along agents; the K-hop aggregation runs the ppermute ring of
-        ``parallel.agent_shard.khop_aggregate_sharded`` (differentiable:
-        XLA tile by autodiff, Pallas tile by custom VJP); gradients pmean
-        over the axis.
+        ``parallel.agent_shard.khop_aggregate_sharded`` (differentiable
+        through each tile's custom VJP); gradients pmean over the axis.
 
         Returns ``(step, mesh)``; ``step((params, opt_state), (xs, feats,
         acts)) -> ((params, opt_state), loss)`` with [B, N, ...] batches
@@ -323,8 +319,6 @@ class LargeFlockingImitationTrainer:
             comm_radius2=float(self.env_params.comm_radius2),
             k_hops=self.model.k_hops,
             axis_name=axis_name,
-            use_pallas=use_pallas,
-            interpret=interpret,
         )
         model_sh = self.model.clone(aggregate_fn=aggregate)
 
@@ -346,11 +340,6 @@ class LargeFlockingImitationTrainer:
             mesh=mesh,
             in_specs=(P(), P(), P(None, axis_name), P(None, axis_name), P(None, axis_name)),
             out_specs=(P(), P(), P()),
-            # the Pallas INTERPRETER path discharges the kernel body into
-            # jaxpr ops whose internal grid constants trip the vma checker;
-            # the TPU Mosaic lowering never discharges, so this only
-            # relaxes CPU testing
-            check_vma=not (use_pallas and interpret),
         )
 
         @jax.jit
@@ -369,7 +358,7 @@ class LargeFlockingImitationTrainer:
 
 
 def save_checkpoint(path: str, params, opt_state, step: int = 0, key=None) -> None:
-    """Serialize trainer state (msgpack via flax.serialization).
+    """Serialize trainer state: ``np.savez`` of the flattened pytree leaves.
 
     ``step`` and the training PRNG ``key`` make the checkpoint resumable
     mid-run (``fit(ckpt_path=..., resume=True)`` picks up at iteration
@@ -379,54 +368,35 @@ def save_checkpoint(path: str, params, opt_state, step: int = 0, key=None) -> No
     """
     import os
 
-    from flax import serialization
-
-    if key is None:
-        key_data, has_key = np.zeros((1,), np.uint32), False
-    else:
-        key_data, has_key = np.asarray(jax.random.key_data(key)), True
-    blob = serialization.to_bytes(
-        {
-            "params": params,
-            "opt_state": opt_state,
-            "step": np.int64(step),
-            "key_data": key_data,
-            "has_key": np.bool_(has_key),
-        }
-    )
+    leaves = jax.tree.leaves((params, opt_state))
+    arrays = {f"leaf_{i}": np.asarray(v) for i, v in enumerate(leaves)}
+    arrays["step"] = np.int64(step)
+    if key is not None:
+        arrays["key_data"] = np.asarray(jax.random.key_data(key))
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
-        f.write(blob)
+        np.savez(f, **arrays)
     os.replace(tmp, path)
 
 
 def restore_checkpoint(path: str, params_template, opt_state_template):
     """Restore trainer state into pytrees of the same structure.
 
-    Returns ``(params, opt_state, step, key)``; ``step`` is 0 and ``key``
-    is None for checkpoints that were saved without them.
+    Returns ``(params, opt_state, step, key)``; ``key`` is None for
+    checkpoints saved without one.  Raises ``ValueError`` when the file's
+    leaf count does not match the templates.
     """
-    from flax import serialization
-
-    with open(path, "rb") as f:
-        blob = f.read()
-    target = {
-        "params": params_template,
-        "opt_state": opt_state_template,
-        "step": np.int64(0),
-        "key_data": None,  # shape varies with the key impl: restore raw
-        "has_key": np.bool_(False),
-    }
-    try:
-        restored = serialization.from_bytes(target, blob)
-    except (KeyError, ValueError):
-        # legacy two-field checkpoint
-        target = {"params": params_template, "opt_state": opt_state_template}
-        restored = serialization.from_bytes(target, blob)
-        return restored["params"], restored["opt_state"], 0, None
-    key = (
-        jax.random.wrap_key_data(jnp.asarray(restored["key_data"]))
-        if restored["has_key"]
-        else None
-    )
-    return restored["params"], restored["opt_state"], int(restored["step"]), key
+    treedef = jax.tree.structure((params_template, opt_state_template))
+    with np.load(path) as data:
+        n = sum(1 for name in data.files if name.startswith("leaf_"))
+        if n != treedef.num_leaves:
+            raise ValueError(
+                f"checkpoint {path} holds {n} leaves, the templates "
+                f"{treedef.num_leaves}"
+            )
+        leaves = [jnp.asarray(data[f"leaf_{i}"]) for i in range(n)]
+        step = int(data["step"])
+        key_data = data["key_data"] if "key_data" in data.files else None
+    params, opt_state = jax.tree.unflatten(treedef, leaves)
+    key = None if key_data is None else jax.random.wrap_key_data(jnp.asarray(key_data))
+    return params, opt_state, step, key

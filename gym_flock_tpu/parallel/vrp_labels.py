@@ -1,6 +1,6 @@
 """Host-parallel VRP label generation for coverage imitation learning.
 
-The SURVEY §5.8 pipeline, implemented: the TPU rolls out batched coverage
+The SURVEY §5.8 pipeline, implemented: the device rolls out batched coverage
 episodes (greedy behavior policy) while the CPU fans the per-state VRP
 solves across a thread pool — ``ctypes`` releases the GIL around the C++
 solver call, so threads get real parallelism.  The result is a

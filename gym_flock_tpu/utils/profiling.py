@@ -1,6 +1,6 @@
 """Profiling helpers (SURVEY.md §5.1: the reference has only driver-side
-wall-clock timing; the rebuild pairs the JAX profiler with honest
-fetch-based step-rate measurement)."""
+wall-clock timing; the rebuild pairs the JAX profiler with step-rate
+measurement that waits for the device)."""
 from __future__ import annotations
 
 import contextlib
@@ -26,12 +26,9 @@ def measure_steps_per_second(
     iters: int = 3,
     warmup: bool = True,
 ) -> float:
-    """Time a jitted scalar-returning rollout fn by value fetch.
-
-    On remote-attached accelerators ``block_until_ready`` can return before
-    execution completes; fetching the scalar is the only reliable sync.
-    ``run(key)`` must return a scalar that depends on every step.
-    """
+    """Time a jitted scalar-returning rollout fn; each call ends in a
+    scalar fetch, which waits for the device.  ``run(key)`` must return a
+    scalar that depends on every step."""
     if warmup:
         float(run(jax.random.key(0)))
     t0 = time.perf_counter()

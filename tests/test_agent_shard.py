@@ -134,7 +134,7 @@ def test_adjacency_matmul_sharded(mesh8, mode, mean_pool):
     np.testing.assert_allclose(got, expected, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.slow  # XLA-tile variant; the production Pallas tile is test_fused_step_pallas_tile
+@pytest.mark.slow  # ring variant; the allgather schedule is test_fused_step_pallas_tile
 def test_fused_step_matches_dense(mesh8):
     """One sharded expert+integrate+obs+reward step == the dense env step."""
     x = _swarm(jax.random.key(3))
@@ -209,54 +209,53 @@ def test_agent_sharded_rollout_2d_mesh(devices8, mode):
 
 @pytest.mark.parametrize("mode", ["ring", pytest.param("allgather", marks=pytest.mark.slow)])
 def test_sums_pallas_tile_matches_dense(mesh8, mode):
-    """The VMEM-tile path (ops.flocking_sums_block per ring step) under
-    shard_map equals the dense kernels (interpret mode on CPU)."""
+    """The core-channel tile (``channels="core"``: min-r2 and the masked
+    gradient sums skipped) under shard_map equals the dense kernels on
+    channels 0..8 and leaves 9..11 zero."""
     x = _swarm(jax.random.key(4))
     expected = _dense_sums(x, PARAMS)
 
     fn = jax.shard_map(
         lambda xl: flocking_sums_sharded(
             xl, PARAMS.comm_radius, PARAMS.comm_radius2, "ap", mode,
-            use_pallas=True, interpret=True,
+            channels="core",
         ),
         mesh=mesh8,
         in_specs=P("ap"),
         out_specs=P("ap"),
-        # the pallas HLO *interpreter* mixes invariant grid indices with
-        # varying data in its internal dynamic_slice, which trips VMA
-        # checking (JAX suggests this exact workaround); the compiled TPU
-        # path carries explicit vma on the kernel output instead
-        check_vma=False,
     )
-    got = fn(x)
-    err = np.abs(np.asarray(got) - np.asarray(expected)) / (
-        1.0 + np.abs(np.asarray(expected))
+    got = np.asarray(fn(x))
+    err = np.abs(got[:, :9] - np.asarray(expected[:, :9])) / (
+        1.0 + np.abs(np.asarray(expected[:, :9]))
     )
     assert err.max() < 1e-4
+    assert not np.any(got[:, 9:])
 
 
 def test_fused_step_pallas_tile(mesh8):
+    """The fused sharded step on the allgather schedule == the dense step."""
     x = _swarm(jax.random.key(5))
     u = turner_controller(x, PARAMS, centralized=True)
     x2_expected = _integrate(x, u, PARAMS.dt)
+    values_expected, _, _, _ = flocking_features(x2_expected, PARAMS.comm_radius2)
 
     fn = jax.shard_map(
-        lambda xl: flocking_step_sharded(
-            xl, PARAMS, "ap", "ring", use_pallas=True, interpret=True
-        ),
+        lambda xl: flocking_step_sharded(xl, PARAMS, "ap", "allgather"),
         mesh=mesh8,
         in_specs=P("ap"),
         out_specs=(P("ap"), P("ap"), P()),
-        check_vma=False,
+        check_vma=False,  # reward is psum'd -> replicated, but computed per-shard
     )
     x2, values, reward = fn(x)
     np.testing.assert_allclose(x2, x2_expected, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(values, values_expected, rtol=2e-4, atol=2e-4)
     assert bool(jnp.isfinite(reward))
 
 
 @pytest.mark.parametrize("mean_pool", [True, False])
-def test_adjacency_matmul_sharded_pallas_tile(mesh8, mean_pool):
-    """MXU-tile path (ops.adjacency_matmul_block per ring step) == dense."""
+def test_adjacency_matmul_sharded_pallas_tile(mesh8, mean_pool, triton_adj_tile):
+    """Each ring tile run by the Triton kernel (interpret mode, global-id
+    offsets per step) == the dense product."""
     kx, kh = jax.random.split(jax.random.key(6))
     x = _swarm(kx).astype(jnp.float32)
     h = jax.random.normal(kh, (N, 16), jnp.float32)
@@ -266,13 +265,14 @@ def test_adjacency_matmul_sharded_pallas_tile(mesh8, mean_pool):
 
     fn = jax.shard_map(
         lambda xl, hl: adjacency_matmul_sharded(
-            xl, hl, PARAMS.comm_radius2, "ap", "ring", mean_pool=mean_pool,
-            use_pallas=True, interpret=True,
+            xl, hl, PARAMS.comm_radius2, "ap", "ring", mean_pool=mean_pool
         ),
         mesh=mesh8,
         in_specs=(P("ap"), P("ap")),
         out_specs=P("ap"),
-        check_vma=False,  # pallas HLO interpreter limitation, see above
+        # the Pallas interpreter's internal grid-loop indices are invariant
+        # while the data varies over "ap", which the vma checker rejects
+        check_vma=False,
     )
     got = fn(x, h)
     np.testing.assert_allclose(
@@ -281,12 +281,12 @@ def test_adjacency_matmul_sharded_pallas_tile(mesh8, mean_pool):
 
 
 @pytest.mark.slow  # both tiles; the sharded aggregation fwd+bwd is covered by test_agent_sharded_train_step_matches_dense[True]
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_khop_aggregate_sharded_matches_and_differentiates(mesh8, use_pallas):
+@pytest.mark.parametrize("kernel_tile", [False, True])
+def test_khop_aggregate_sharded_matches_and_differentiates(mesh8, request, kernel_tile):
     """Sharded K-hop aggregation == dense ops.khop_aggregate, AND its
-    gradient wrt features matches dense autodiff — the XLA tile through
-    scan+ppermute autodiff, the Pallas tile through the swapped-operand
-    custom VJP of adjacency_matmul_block."""
+    gradient wrt features matches dense autodiff through the
+    swapped-operand custom VJP of adjacency_matmul_block — with each tile
+    the XLA product or the Triton kernel (interpret mode)."""
     from gym_flock_tpu.ops.pallas_flocking import khop_aggregate
     from gym_flock_tpu.parallel.agent_shard import khop_aggregate_sharded
 
@@ -295,30 +295,24 @@ def test_khop_aggregate_sharded_matches_and_differentiates(mesh8, use_pallas):
     feats = jax.random.normal(kh, (N, 6), jnp.float32)
     co = jax.random.normal(kc, (N, 18), jnp.float32)  # k_hops * F
 
-    want = khop_aggregate(x, feats, PARAMS.comm_radius2, k_hops=3, interpret=True)
+    want = khop_aggregate(x, feats, PARAMS.comm_radius2, k_hops=3)
+    want_g = jax.grad(
+        lambda f: jnp.sum(khop_aggregate(x, f, PARAMS.comm_radius2, k_hops=3) * co)
+    )(feats)
+    if kernel_tile:
+        request.getfixturevalue("triton_adj_tile")
 
-    # check_vma=False: grad-time retracing of the Pallas INTERPRETER path
-    # discharges the kernel body into jaxpr ops whose internal grid-loop
-    # constants trip shard_map's vma checker (the real TPU Mosaic lowering
-    # never discharges the kernel, so production is unaffected)
     fn = jax.shard_map(
         lambda xl, fl: khop_aggregate_sharded(
-            xl, fl, PARAMS.comm_radius2, 3, "ap", "ring",
-            use_pallas=use_pallas, interpret=use_pallas,
+            xl, fl, PARAMS.comm_radius2, 3, "ap", "ring"
         ),
         mesh=mesh8,
         in_specs=(P("ap"), P("ap")),
         out_specs=P("ap"),
-        check_vma=not use_pallas,
+        check_vma=not kernel_tile,  # interpreter limitation, see above
     )
     got = fn(x, feats)
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
-
-    want_g = jax.grad(
-        lambda f: jnp.sum(
-            khop_aggregate(x, f, PARAMS.comm_radius2, k_hops=3, interpret=True) * co
-        )
-    )(feats)
     got_g = jax.grad(lambda f: jnp.sum(fn(x, f) * co))(feats)
     np.testing.assert_allclose(got_g, want_g, rtol=2e-5, atol=2e-5)
 

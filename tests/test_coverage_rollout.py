@@ -203,24 +203,24 @@ def test_revisit_nodes_flag_reverts_targets():
         "no visited target ever reverted in 120 steps"
 
 
-@pytest.mark.slow  # one-hot-matmul expert covered fast by test_multi_graph_mm_expert_matches_gather; hide-nodes masks by test_hide_mm_discovery_masks
+@pytest.mark.slow  # bf16 packed route covered fast by test_multi_graph_mm_expert_matches_gather; hide-nodes masks by test_hide_mm_discovery_masks
 @pytest.mark.parametrize("hide_nodes", [False, True])
 def test_mxu_greedy_expert_matches_gather_path(hide_nodes):
-    """The one-hot-matmul greedy expert (single-graph bank, large R) is
-    action-for-action identical to the row-gather path: each matmul output
-    element is a single 0/1-weighted bf16-exact product, so no precision is
-    lost (envs.coverage._greedy_cost_rows).  hide_nodes exercises the
-    discovery-masked blocked set through the packed-min path."""
+    """The greedy expert's packed min over bf16 cost rows (single-graph
+    bank, large R) is action-for-action identical to the variadic argmin
+    over the f32 table over a rollout.  hide_nodes exercises the
+    discovery-masked blocked set."""
     env, params = gft.make(
         "Coverage-v0", n_graphs=1, n_robots=20,
         hide_nodes=hide_nodes, n_node_feat=4 if hide_nodes else 3,
     )
-    assert "graph_cost_mm" in params.bank, "bank should carry the bf16 copy"
-    assert params.bank["graph_cost_mm"].shape[0] == 1
+    assert "graph_cost_bf16" in params.bank, "bank should carry the bf16 copy"
+    assert params.bank["graph_cost_bf16"].shape[0] == 1
 
-    # strip the bf16 copy to force the reference row-gather path
+    # strip the bf16 copy and the pack marker: the plain argmin path
     params_gather = params.replace(
-        bank={k: v for k, v in params.bank.items() if k != "graph_cost_mm"}
+        bank={k: v for k, v in params.bank.items()
+              if k not in ("graph_cost_bf16", "cost_pack_ok")}
     )
 
     state_a, _ = env.reset_env(jax.random.key(3), params)
@@ -240,16 +240,14 @@ def test_mxu_greedy_expert_matches_gather_path(hide_nodes):
 
 
 def test_multi_graph_mm_expert_matches_gather():
-    """The multi-graph MXU one-hot cost-row path (flattened [G*T, T]
-    operand indexed by g*T+cur) produces IDENTICAL greedy actions to the
-    plain row gather, for every graph in the bank."""
+    """On a multi-graph bank the packed min over bf16 cost rows (indexed
+    by each env's graph) produces IDENTICAL greedy actions to the plain
+    argmin over the f32 table, for every graph in the bank."""
     env, params = gft.make("Coverage-v0", n_graphs=4, n_robots=16)
-    from gym_flock_tpu.envs.coverage import _mm_expert_active
-
-    assert _mm_expert_active(params), "mm path should engage at R=16, G=4"
-    bank_nomm = {k: v for k, v in params.bank.items() if k != "graph_cost_mm"}
+    assert "graph_cost_bf16" in params.bank and "cost_pack_ok" in params.bank
+    bank_nomm = {k: v for k, v in params.bank.items()
+                 if k not in ("graph_cost_bf16", "cost_pack_ok")}
     params_nomm = params.replace(bank=bank_nomm)
-    assert not _mm_expert_active(params_nomm)
 
     for g in range(4):
         key = jax.random.key(100 + g)
@@ -269,17 +267,15 @@ def test_multi_graph_mm_expert_matches_gather():
 
 
 def test_small_r_mm_expert_matches_gather():
-    """The MXU one-hot cost-row path now engages at ANY robot count on
-    accelerator backends (a vmapped batch flattens into one big dot with
-    only G*T distinct rows; measured +54% end-to-end at R=6, B=8192).
-    CPU tests can't trip the backend heuristic, so force it with
-    ``expert_mm=True`` and pin action equality at the default R=6."""
-    from gym_flock_tpu.envs.coverage import _mm_expert_active
-
-    env, params = gft.make("Coverage-v0", n_graphs=4, expert_mm=True)
-    assert _mm_expert_active(params)
-    params_gather = params.replace(expert_mm=False)
-    assert not _mm_expert_active(params_gather)
+    """At the default R=6 the packed min gives the same actions whether it
+    gathers rows from the bf16 cost copy or from the f32 table (a bank
+    without the copy): the copy is exact, unreachable included."""
+    env, params = gft.make("Coverage-v0", n_graphs=4)
+    assert params.bank["graph_cost_bf16"].dtype == jnp.bfloat16
+    params_gather = params.replace(
+        bank={k: v for k, v in params.bank.items() if k != "graph_cost_bf16"}
+    )
+    assert "cost_pack_ok" in params_gather.bank
 
     key = jax.random.key(11)
     state, _ = env.reset_env(key, params)
@@ -291,23 +287,19 @@ def test_small_r_mm_expert_matches_gather():
         state, _, _, _, _ = env.step_env(kt, state, u_mm, params)
 
 
-def test_expert_mm_force_cannot_bypass_packing_range():
-    """expert_mm=True on a T >= 4096 bank must NOT engage the one-hot
-    path: the controller packs cost*4096+idx, so indices >= 4096 alias
-    onto cost+1 and corrupt greedy actions (ADVICE r3, medium).  The
-    force may only route within the exact range."""
-    from gym_flock_tpu.envs.coverage import CoverageParams, _mm_expert_active
+def test_cost_pack_marker_bounds_packing_range():
+    """The packed min encodes cost*8192+idx, so indices >= 8192 would
+    alias onto cost+1: _cost_pack_marker keeps the packed route for
+    T=8192 (the last exact width) and drops it beyond, sending the
+    expert to the variadic argmin."""
+    from types import SimpleNamespace
 
-    env, params = gft.make("Coverage-v0", n_graphs=2, expert_mm=True)
-    assert _mm_expert_active(params)  # small-T bank: the force engages
+    from gym_flock_tpu.envs.coverage_graph import _cost_pack_marker
 
-    big_mm = jnp.zeros((1, 4096), dtype=jnp.bfloat16)
-    big = params.replace(bank=dict(params.bank, graph_cost_mm=big_mm))
-    assert not _mm_expert_active(big)  # T=4096 aliases: force is ignored
-    edge_ok = params.replace(
-        bank=dict(params.bank, graph_cost_mm=jnp.zeros((1, 4095), jnp.bfloat16))
-    )
-    assert _mm_expert_active(edge_ok)  # T=4095 is the last exact width
+    edge = SimpleNamespace(graph_cost=np.zeros((2, 8192), np.float32))
+    assert "cost_pack_ok" in _cost_pack_marker([edge])
+    big = SimpleNamespace(graph_cost=np.zeros((2, 8193), np.float32))
+    assert _cost_pack_marker([big]) == {}
 
 
 def test_explicit_bank_plus_real_map_raises():
@@ -350,7 +342,7 @@ def test_cost_pack_marker_validates_full_array():
     ("ExploreFullEnv-v0", dict()),          # G=1 (the flagship env)
 ])
 def test_hide_mm_discovery_masks_match_gather_path(env_id, mk):
-    """The MXU discovery-mask path (one-hot matmuls over the motion block,
+    """The one-hot discovery-mask path (one-hot matmuls over the motion block,
     tail handled by the radius argument — coverage._hide_mm_active) is
     BITWISE equal to the gather+scatter path: every obs leaf, reward, and
     the discovered mask, over a rollout long enough to grow discovery."""
@@ -474,20 +466,16 @@ def test_packed_min_greedy_matches_argmin_path():
     env, params = gft.make("ExploreFullEnv-v0")
     assert "cost_pack_ok" in params.bank
 
-    # expert_mm=False keeps both configs on the row-gather branch; the
-    # argmin variant gets a bank WITHOUT the marker (presence is the gate)
-    p_packed = params.replace(expert_mm=False)
+    # the argmin variant gets a bank WITHOUT the marker (presence is the gate)
     bank_no_marker = {k: v for k, v in params.bank.items() if k != "cost_pack_ok"}
-    p_argmin = params.replace(expert_mm=False, bank=bank_no_marker)
+    p_argmin = params.replace(bank=bank_no_marker)
 
     state, _ = env.reset_env(jax.random.key(3), params)
     for t in range(12):
         kt = jax.random.key(500 + t)
-        u_packed = env.controller(state, p_packed, key=kt, greedy=True)
+        u_packed = env.controller(state, params, key=kt, greedy=True)
         u_argmin = env.controller(state, p_argmin, key=kt, greedy=True)
-        u_mm = env.controller(state, params, key=kt, greedy=True)  # mm path
         np.testing.assert_array_equal(np.asarray(u_packed), np.asarray(u_argmin))
-        np.testing.assert_array_equal(np.asarray(u_packed), np.asarray(u_mm))
         state, _, _, _, _ = env.step_env(kt, state, u_packed, params)
 
 

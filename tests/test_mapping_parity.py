@@ -302,7 +302,7 @@ def test_mapping_disc_action_space_steppable():
 
 
 def test_iterative_target_selection_matches_topk():
-    """The kt-round min extraction in _mapping_helpers (the TPU-fast
+    """The kt-round min extraction in _mapping_helpers (the fast
     replacement for jax.lax.top_k over the 10,000-wide target axis) is
     exactly equivalent to stable top_k after the valid-zeroing: same
     obs_target, newly, credit — fuzzed over densities including ties

@@ -269,7 +269,7 @@ def test_large_flocking_imitation_trains():
     from gym_flock_tpu.parallel import LargeFlockingImitationTrainer
 
     env, params = gft_.make("FlockingLarge-v0", n_agents=24, max_reset_tries=4)
-    trainer = LargeFlockingImitationTrainer(env, params, interpret=True)
+    trainer = LargeFlockingImitationTrainer(env, params)
     carry = trainer.init(jax.random.key(0))
     p0 = jax.tree.map(lambda a: np.asarray(a).copy(), carry[0])
     losses = []
@@ -277,7 +277,7 @@ def test_large_flocking_imitation_trains():
         carry, loss = trainer.train_step(carry, jax.random.key(i + 1), 2, 2)
         losses.append(float(loss))
     assert all(np.isfinite(l) for l in losses)
-    # gradients actually flowed through the Pallas aggregation
+    # gradients actually flowed through the tiled aggregation
     moved = jax.tree.leaves(
         jax.tree.map(lambda a, b: float(np.abs(np.asarray(a) - b).max()), carry[0], p0)
     )
@@ -310,19 +310,21 @@ def test_dagger_resume_reproduces_uninterrupted_run(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "use_pallas",
-    [pytest.param(False, marks=pytest.mark.slow), True],  # keep the production (pallas) path in the default tier
+    "kernel_tile",
+    [pytest.param(False, marks=pytest.mark.slow), True],  # keep the GPU (kernel) tile in the default tier
 )
-def test_agent_sharded_train_step_matches_dense(tmp_path, use_pallas):
+def test_agent_sharded_train_step_matches_dense(tmp_path, request, monkeypatch,
+                                                kernel_tile):
     """The agent-axis-sharded GNN train step produces the SAME update as
     the single-device step on identical data (ring aggregation + pmean'd
-    grads == dense aggregation)."""
+    grads == dense aggregation); ``kernel_tile`` runs each ring tile
+    through the Triton kernel (interpret mode) as the GPU does."""
     import gym_flock_tpu as gft_
     from gym_flock_tpu.parallel import LargeFlockingImitationTrainer
     from gym_flock_tpu.parallel.train import collect_large_flocking_batch
 
     env, params = gft_.make("FlockingLarge-v0", n_agents=24, max_reset_tries=4)
-    trainer = LargeFlockingImitationTrainer(env, params, interpret=True)
+    trainer = LargeFlockingImitationTrainer(env, params)
     carry = trainer.init(jax.random.key(0))
     xs, feats, acts = collect_large_flocking_batch(env, params, jax.random.key(1), 2, 2)
 
@@ -336,9 +338,17 @@ def test_agent_sharded_train_step_matches_dense(tmp_path, use_pallas):
     import optax
     params_d = optax.apply_updates(carry[0], updates)
 
-    step, mesh = trainer.make_agent_sharded_train_step(
-        use_pallas=use_pallas, interpret=True
-    )
+    if kernel_tile:
+        import functools
+
+        request.getfixturevalue("triton_adj_tile")
+        # the Pallas interpreter's internal grid-loop indices are invariant
+        # while the data varies over the mesh axis, which shard_map's vma
+        # checker rejects; compiled kernels carry the vma on their outputs
+        monkeypatch.setattr(
+            jax, "shard_map", functools.partial(jax.shard_map, check_vma=False)
+        )
+    step, mesh = trainer.make_agent_sharded_train_step()
     (params_s, _), loss_s = step(carry, (xs, feats, acts))
     np.testing.assert_allclose(float(loss_s), float(loss_d), rtol=1e-5)
     # Adam normalizes by sqrt(v): near-zero-gradient elements amplify

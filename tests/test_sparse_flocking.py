@@ -25,7 +25,7 @@ def _swarm(key, n, spread):
 @pytest.mark.parametrize("n,spread", [(256, 4.0), (512, 8.0), (1024, 12.0)])
 def test_sparse_matches_dense(n, spread):
     x = _swarm(jax.random.key(0), n, spread)
-    want = flocking_sums(x, CR, CR2, interpret=True)[:, :9]
+    want = flocking_sums(x, CR, CR2)[:, :9]
     got = flocking_sums_sparse(x, CR, CR2, k_max=16)[:, :9]
     scale = 1.0 + jnp.abs(want)
     assert float(jnp.max(jnp.abs(got - want) / scale)) < 1e-4
@@ -33,7 +33,7 @@ def test_sparse_matches_dense(n, spread):
 
 def test_sparse_batched_matches_dense():
     xs = jax.vmap(lambda k: _swarm(k, 256, 6.0))(jax.random.split(jax.random.key(1), 3))
-    want = jax.vmap(lambda x: flocking_sums(x, CR, CR2, interpret=True))(xs)[:, :, :9]
+    want = jax.vmap(lambda x: flocking_sums(x, CR, CR2))(xs)[:, :, :9]
     got = flocking_sums_sparse(xs, CR, CR2, k_max=16)[:, :, :9]
     scale = 1.0 + jnp.abs(want)
     assert float(jnp.max(jnp.abs(got - want) / scale)) < 1e-4
@@ -45,7 +45,7 @@ def test_overflow_falls_back_to_dense():
     x = jax.random.normal(jax.random.key(2), (512, 4), jnp.float32) * 0.01
     _, overflow = block_pair_table(x[morton_order(x, CR)], CR, k_max=2)
     assert bool(overflow)
-    want = flocking_sums(x, CR, CR2, interpret=True)[:, :9]
+    want = flocking_sums(x, CR, CR2)[:, :9]
     got = flocking_sums_sparse(x, CR, CR2, k_max=2)[:, :9]
     scale = 1.0 + jnp.abs(want)
     assert float(jnp.max(jnp.abs(got - want) / scale)) < 1e-4
@@ -56,25 +56,45 @@ def test_pruning_is_exact_not_lossy():
     degree channel (exact integer counts) must match the dense kernel
     EXACTLY, not just within tolerance."""
     x = _swarm(jax.random.key(3), 512, 6.0)
-    want_deg = flocking_sums(x, CR, CR2, interpret=True)[:, 8]
+    want_deg = flocking_sums(x, CR, CR2)[:, 8]
     got_deg = flocking_sums_sparse(x, CR, CR2, k_max=16)[:, 8]
     np.testing.assert_array_equal(np.asarray(got_deg), np.asarray(want_deg))
 
 
 def test_sparse_pallas_kernel_matches_xla_path():
-    """The table-driven Pallas kernel (interpreter) == the XLA formulation."""
+    """The table-driven sparse pass == the dense fused pass on a batch (one
+    batch-wide overflow predicate), for both channel sets; and the
+    table-driven Triton kernel == the XLA scan it replaces on the GPU."""
+    from gym_flock_tpu.ops.pallas_flocking import flocking_sums_block
+
     x = _swarm(jax.random.key(5), 512, 8.0)
-    want = flocking_sums_sparse(x, CR, CR2, k_max=16, impl="xla")[:, :9]
-    got = flocking_sums_sparse(x, CR, CR2, k_max=16, interpret=True)[:, :9]
-    scale = 1.0 + jnp.abs(want)
-    assert float(jnp.max(jnp.abs(got - want) / scale)) < 1e-5
-
     xb = jnp.stack([x, x[::-1]])
-    got_b = flocking_sums_sparse(xb, CR, CR2, k_max=16, interpret=True)[:, :, :9]
-    want_b = flocking_sums_sparse(xb, CR, CR2, k_max=16, impl="xla")[:, :, :9]
-    scale = 1.0 + jnp.abs(want_b)
-    assert float(jnp.max(jnp.abs(got_b - want_b) / scale)) < 1e-5
+    want = flocking_sums_block(xb, xb, 0, 0, CR, CR2, channels="full")
+    for channels, chans in (("core", list(range(9))), ("expert", [0, 3, 8, 10, 11])):
+        got = flocking_sums_sparse(xb, CR, CR2, k_max=16, channels=channels)
+        assert got.shape == (2, 512, 16)
+        w = want[..., chans]
+        err = jnp.abs(got[..., chans] - w) / (1.0 + jnp.abs(w))
+        assert float(jnp.max(err)) < 1e-4, channels
 
+    # the table-driven Triton kernel (interpret mode) == the XLA scan, on
+    # a batch, both channel sets
+    from gym_flock_tpu.ops.sparse_flocking import (
+        _sparse_sums_sorted,
+        _table_sums_triton,
+        hilbert_order,
+    )
+
+    xs = jax.vmap(lambda xi: xi[hilbert_order(xi, CR)])(xb)
+    table, overflow = jax.vmap(lambda a: block_pair_table(a, CR, 16))(xs)
+    assert not bool(jnp.any(overflow))
+    for expert in (False, True):
+        want_s = jax.vmap(
+            lambda a, t: _sparse_sums_sorted(a, t, CR, CR2, expert=expert)
+        )(xs, table)
+        got_s = _table_sums_triton(xs, table, CR, CR2, expert, interpret=True)
+        err = jnp.abs(got_s - want_s) / (1.0 + jnp.abs(want_s))
+        assert float(jnp.max(err)) < 1e-4, expert
 
 def test_sparse_env_matches_large_env():
     """FlockingSparse-v0 == FlockingLarge-v0: obs, expert, reward over a
@@ -112,13 +132,13 @@ def test_sparse_adjacency_matmul_matches_dense_and_differentiates():
     co = jax.random.normal(kc, (512, 6), jnp.float32)
 
     for mean_pool in (False, True):
-        want = adjacency_matmul(x, h, CR2, mean_pool=mean_pool, interpret=True)
+        want = adjacency_matmul(x, h, CR2, mean_pool=mean_pool)
         got = adjacency_matmul_sparse(x, h, CR2, mean_pool=mean_pool)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-4)
 
         want_g = jax.grad(
             lambda hv: jnp.sum(
-                adjacency_matmul(x, hv, CR2, mean_pool=mean_pool, interpret=True) * co
+                adjacency_matmul(x, hv, CR2, mean_pool=mean_pool) * co
             )
         )(h)
         got_g = jax.grad(
@@ -141,7 +161,7 @@ def test_sparse_khop_in_large_gnn_trains():
     x = _swarm(kx, 256, 6.0)
     feats = jax.random.normal(kh, (256, 6), jnp.float32)
 
-    dense = LargeAggregationGNN(comm_radius2=CR2, interpret=True)
+    dense = LargeAggregationGNN(comm_radius2=CR2)
     sparse = LargeAggregationGNN(
         comm_radius2=CR2,
         aggregate_fn=functools.partial(khop_aggregate_sparse, comm_radius2=CR2, k_hops=3),
@@ -238,8 +258,7 @@ def test_sparse_expert_channels_match_dense_full():
     from gym_flock_tpu.ops.pallas_flocking import flocking_sums_block
 
     x = _swarm(jax.random.key(31), 512, 8.0)
-    want = flocking_sums_block(x, x, 0, 0, CR, CR2, interpret=True,
-                               channels="full")
+    want = flocking_sums_block(x, x, 0, 0, CR, CR2, channels="full")
     got = flocking_sums_sparse(x, CR, CR2, channels="expert")
     scale = 1.0 + jnp.abs(want)
     for ch in (10, 11):
@@ -354,7 +373,7 @@ def test_verlet_overflow_falls_back_to_dense():
     vs = verlet_build(x, CR, CR, k_max=2)
     assert bool(vs.overflow)
     got, _ = flocking_sums_sparse_verlet(x, vs, CR, CR2, CR)
-    want = flocking_sums(x, CR, CR2, interpret=True)[:, :9]
+    want = flocking_sums(x, CR, CR2)[:, :9]
     scale = 1.0 + np.abs(np.asarray(want))
     assert float(np.max(np.abs(np.asarray(got[:, :9]) - np.asarray(want)) / scale)) < 1e-4
 
